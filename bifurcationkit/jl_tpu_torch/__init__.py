@@ -1,0 +1,71 @@
+"""bifurcationkit.jl_tpu_torch — the PyTorch/CUDA port of
+`bifurcationkit.jl_tpu`.
+
+Same layout and names as the JAX package (`core/`, `linalg/`, `newton.py`,
+`models/`, `ops/`, `continuation/`, `detection/`); plain PyTorch inside:
+functions on tensors, frozen dataclasses for solver configs, explicit
+`device=`/`dtype=` and explicit `torch.Generator`s.  The JAX package's
+only hand-written kernel on the SH2d path, the fused Swift-Hohenberg J.v,
+is a CUDA C++ kernel for Hopper (`csrc/sh_jv.cu`, bound in `ops/sh_jv.py`).
+
+Defaults mirror the JAX package's x64 switch (`jl_tpu/__init__.py`): f64
+is the default dtype, passed explicitly (never through
+`torch.set_default_dtype`).  Entry points run on the card unless the
+caller passes `device="cpu"`; asking for the card where there is none
+raises.  TF32 stays off in every solve chain: reduced matmul precision
+inside the Krylov/Rayleigh-Ritz chains silently stalls convergence.
+"""
+import torch as _torch
+
+DEFAULT_DTYPE = _torch.float64
+
+
+def check_tf32_off():
+    """Raise if TF32 matmuls were switched on (they cut the f32 Krylov and
+    Rayleigh-Ritz chains to ~3 digits)."""
+    if _torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError(
+            "bifurcationkit.jl_tpu_torch needs "
+            "torch.backends.cuda.matmul.allow_tf32 = False")
+
+
+def resolve_device(device=None) -> _torch.device:
+    """`None` means the card; a CUDA device that is not there raises."""
+    dev = _torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not _torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA is not available; pass device='cpu' explicitly to run "
+            "the port on the CPU")
+    return dev
+
+
+check_tf32_off()
+
+from .core import (BifurcationProblem, BorderedState, ContinuationPar,  # noqa: E402
+                   DotTheta, Lens, NewtonPar, as_lens, lens_get, lens_set,
+                   setfield)
+from .linalg import (DenseEig, DenseLS, FlatOperator, GMRES,  # noqa: E402
+                     IterativeRefinement, LOBPCGEig)
+from .linalg.bordered import (BorderingBLS, LSFromBLS, MatrixBLS,  # noqa: E402
+                              MatrixFreeBLS)
+from .newton import (NonLinearSolution, cb_max_norm,  # noqa: E402
+                     cb_max_norm_and_dp, newton)
+from .continuation import (Bordered, ContIterable, ContResult,  # noqa: E402
+                           ContState, Natural, PALC, Secant, continuation)
+from .detection import SpecialPoint  # noqa: E402
+
+__version__ = "0.1.0"
+
+_LAZY_SUBMODULES = ("models", "ops", "linalg", "detection", "continuation",
+                    "core", "interop")
+
+
+def __getattr__(name):
+    # lazy submodule access (`bkt.models.swift_hohenberg_2d(...)`) without
+    # paying the import cost of every model/kernel at package import time
+    if name in _LAZY_SUBMODULES:
+        import importlib
+        mod = importlib.import_module(f".{name}", __name__)
+        globals()[name] = mod
+        return mod
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

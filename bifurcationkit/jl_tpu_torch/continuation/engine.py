@@ -1,0 +1,329 @@
+"""Continuation engine — the port of `jl_tpu/continuation/engine.py`
+(ref src/Continuation.jl).
+
+Device-resident state (`BorderedState` z, tangent tau) advanced by the
+step kernels, with a thin host loop doing step-size control, detection,
+bisection and recording on scalars.  The state never crosses to the host
+unless solutions are saved by the caller's hooks.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Optional, Tuple
+
+import numpy as np
+import torch
+
+from .. import check_tf32_off
+from ..core.params import ContinuationPar
+from ..core.state import BorderedState, tree_axpy, tree_norm
+from .algorithms import PALC, Natural
+from .kernels import make_kernels
+from .results import ContResult
+from .tangents import Bordered, Secant
+
+
+@dataclasses.dataclass
+class ContState:
+    """Host orchestration state (ref `ContState`, src/Continuation.jl:140).
+    z/tau are device tensors; scalars live on the host for control flow."""
+
+    z: BorderedState = None          # last converged point
+    z_old: BorderedState = None      # previous converged point
+    tau: BorderedState = None        # unit tangent (theta-norm)
+    ds: float = 0.01
+    step: int = 0
+    converged: bool = True
+    itnewton: int = 0
+    itlinear: int = 0
+    res: float = 0.0
+    eigvals: Optional[np.ndarray] = None
+    eigvecs: Any = None
+    converged_eig: bool = True
+    n_unstable: Tuple[int, int] = (-1, -1)   # (current, previous)
+    n_imag: Tuple[int, int] = (-1, -1)
+    stopcontinuation: bool = False
+    stepsizecontrol: bool = True
+    in_bisection: bool = False
+    event_values: Optional[tuple] = None     # (current, previous)
+    eig_seed: Any = None                     # eigensolver warm start (device)
+
+    def copy(self) -> "ContState":
+        return dataclasses.replace(self)
+
+    # each read is a device -> host transfer of one scalar
+    @property
+    def p(self) -> float:
+        return float(self.z.p)
+
+    @property
+    def p_old(self) -> float:
+        return float(self.z_old.p)
+
+    @property
+    def tau_p(self) -> float:
+        return float(self.tau.p)
+
+
+class ContIterable:
+    """Everything needed to run one continuation (ref src/Continuation.jl:27)."""
+
+    def __init__(self, prob, alg, contparams: ContinuationPar,
+                 norm: Callable = tree_norm,
+                 finalise_solution: Optional[Callable] = None,
+                 callback_newton: Optional[Callable] = None,
+                 event=None,
+                 verbosity: int = 0,
+                 kind: str = "EquilibriumCont"):
+        check_tf32_off()
+        if not isinstance(alg, (PALC, Natural)):
+            raise NotImplementedError(
+                f"{type(alg).__name__} is not ported yet; use PALC or Natural")
+        self.prob = prob
+        self.alg = alg
+        self.base_alg = alg
+        self.contparams = contparams
+        self.norm = norm
+        self.finalise_solution = finalise_solution
+        self.callback_newton = callback_newton
+        self.event = event
+        self.verbosity = verbosity
+        self.kind = kind
+        self.kernels = make_kernels(prob, alg, contparams, norm,
+                                    callback=callback_newton)
+        self._kernels_by_nev = {self.kernels.nev: self.kernels}
+        # current (possibly updated along the branch) parameters; the
+        # problem's update hook may replace them (ref update_problem!,
+        # src/Continuation.jl:251)
+        self.current_params = prob.params
+
+    # ------------------------------------------------------------------
+    # initialization: two Newton solves + secant tangent
+    # (ref iterate(it) first point, src/Continuation.jl:349-446)
+    # ------------------------------------------------------------------
+    def init_state(self, x0=None, params=None) -> ContState:
+        cp = self.contparams
+        kn = self.kernels
+        if params is not None:
+            self.current_params = params
+        params = self.current_params
+        x0 = self.prob.u0 if x0 is None else x0
+        p0 = float(self.prob.get_lens_param(params))
+        ds = cp.ds
+
+        u0, cv0, it0, _, res0 = kn.newton_fixed(x0, kn.as_p(p0), params)
+        if not cv0:
+            raise RuntimeError(
+                f"Newton failed to converge on the initial guess at p = {p0} "
+                f"(residual {res0:.3e})")
+
+        # second point at p0 + ds / eta for the secant tangent
+        p1 = p0 + ds / cp.eta
+        u1, cv1, _, _, _ = kn.newton_fixed(u0, kn.as_p(p1), params)
+        if not cv1:
+            raise RuntimeError(f"Newton failed on the second point at p = {p1}")
+
+        z0 = BorderedState(u=u0, p=kn.as_p(p0))
+        z1 = BorderedState(u=u1, p=kn.as_p(p1))
+        tau = kn.secant_tangent(z1, z0, ds)
+        state = ContState(z=z0, z_old=z0, tau=tau, ds=ds, step=0,
+                          converged=True, itnewton=it0, res=res0)
+        if cp.compute_eigenelements:
+            self.compute_eig(state)
+            state.n_unstable = (state.n_unstable[0], state.n_unstable[0])
+            state.n_imag = (state.n_imag[0], state.n_imag[0])
+        return state
+
+    # ------------------------------------------------------------------
+    # eigen-elements + stability counters (ref is_stable, Bifurcations.jl:5)
+    # ------------------------------------------------------------------
+    def compute_eig(self, state: ContState):
+        vals, vecs, cv, seed = self.kernels.eig(state.z.u, state.z.p,
+                                                self._params(),
+                                                state.eig_seed)
+        state.eig_seed = seed
+        self._set_eig(state, vals, vecs, cv)
+
+    def _set_eig(self, state: ContState, vals: np.ndarray, vecs, cv: bool):
+        tol = self.contparams.tol_stability
+        state.eigvals = vals
+        state.eigvecs = vecs
+        state.converged_eig = cv
+        state.n_unstable = (int(np.sum(vals.real > tol)), state.n_unstable[0])
+        state.n_imag = (int(np.sum((np.abs(vals.imag) > tol)
+                                   & (vals.real > tol))), state.n_imag[0])
+        self._maybe_raise_nev(state)
+
+    def _maybe_raise_nev(self, state: ContState):
+        """Grow the eigensolve window to n_unstable + 5 (ref the nev
+        auto-raise in compute_eigenvalues!, src/Utils.jl:67-105); kernels
+        are memoized per nev, rounded up to a multiple of 4."""
+        kn = self.kernels
+        need = state.n_unstable[0] + 5
+        if need <= kn.nev or kn.nev >= kn.n_state:
+            return
+        new_nev = min(int(-(-need // 4) * 4), kn.n_state)
+        if new_nev not in self._kernels_by_nev:
+            self._kernels_by_nev[new_nev] = make_kernels(
+                self.prob, self.base_alg, self.contparams, self.norm,
+                callback=self.callback_newton, nev=new_nev)
+        self.kernels = self._kernels_by_nev[new_nev]
+
+    def _params(self):
+        return self.current_params
+
+    # ------------------------------------------------------------------
+    # one continuation step (ref iterate(it, state), src/Continuation.jl:458)
+    # ------------------------------------------------------------------
+    def iterate(self, state: ContState):
+        cp = self.contparams
+        kn = self.kernels
+        ds = state.ds
+        p_pred = state.p + ds * state.tau_p
+
+        if isinstance(self.alg, Natural):
+            p_new = float(np.clip(state.p + ds, cp.p_min, cp.p_max))
+            u_new, cv, itn, itl, res = kn.newton_fixed(
+                state.z.u, kn.as_p(p_new), self._params())
+            z_new = BorderedState(u=u_new, p=kn.as_p(p_new))
+        elif p_pred <= cp.p_min or p_pred >= cp.p_max:
+            # PALC falls back to Natural at the parameter-domain boundary
+            # (ref corrector! dispatch, src/continuation/Palc.jl:157-166)
+            p_clamped = float(np.clip(p_pred, cp.p_min, cp.p_max))
+            u_pred = tree_axpy(ds, state.tau.u, state.z.u)
+            u_new, cv, itn, itl, res = kn.newton_fixed(
+                u_pred, kn.as_p(p_clamped), self._params())
+            z_new = BorderedState(u=u_new, p=kn.as_p(p_clamped))
+        elif self._can_fuse():
+            # predictor + corrector + secant tangent + eig in one kernel call
+            (z_new, tau_new, cv, itn, itl, res, vals, vecs,
+             cv_eig, eig_seed) = kn.palc_step(state.z, state.tau, ds,
+                                              self._params(), state.eig_seed)
+            state.converged, state.itnewton = cv, itn
+            state.itlinear, state.res = itl, res
+            if cv:
+                state.z_old = state.z
+                state.z = z_new
+                state.tau = tau_new
+                state.eig_seed = eig_seed
+                if cp.compute_eigenelements:
+                    self._set_eig(state, vals, vecs, cv_eig)
+            if state.stepsizecontrol:
+                self.step_size_control(state)
+            state.step += 1
+            return state
+        else:
+            z_pred = BorderedState(u=tree_axpy(ds, state.tau.u, state.z.u),
+                                   p=state.z.p + ds * state.tau.p)
+            z_new, cv, itn, itl, res = kn.palc_corrector(
+                z_pred, state.z, state.tau, ds, self._params())
+
+        state.converged, state.itnewton = cv, itn
+        state.itlinear, state.res = itl, res
+        if cv:
+            state.z_old = state.z
+            state.z = z_new
+            if cp.compute_eigenelements:
+                self.compute_eig(state)
+        if state.stepsizecontrol:
+            self.step_size_control(state)
+        self.update_predictor(state)
+        state.step += 1
+        return state
+
+    def _can_fuse(self) -> bool:
+        """The fused step applies for plain PALC with the Secant tangent."""
+        return (isinstance(self.alg, PALC)
+                and isinstance(getattr(self.alg, "tangent", None), Secant))
+
+    # ------------------------------------------------------------------
+    # step-size control (ref _step_size_control!, Contbase.jl:77-160)
+    # ------------------------------------------------------------------
+    def step_size_control(self, state: ContState):
+        cp = self.contparams
+        ds = state.ds
+        if not state.converged:
+            if abs(ds) <= cp.dsmin:
+                state.stopcontinuation = True
+                if self.verbosity > 0:
+                    print(f"!! Newton failed at dsmin — stopping at step "
+                          f"{state.step}")
+                return
+            dsnew = np.sign(ds) * max(abs(ds) / 2, cp.dsmin)
+        else:
+            nmax = cp.newton_options.max_iterations
+            factor = (nmax - state.itnewton) / nmax
+            dsnew = ds * (1 + cp.a * factor ** 2)
+        state.ds = float(np.sign(dsnew) *
+                         np.clip(abs(dsnew), cp.dsmin, cp.dsmax))
+        state.stopcontinuation = False
+
+    # ------------------------------------------------------------------
+    # predictor / tangent update (ref getpredictor!, Palc.jl:125)
+    # ------------------------------------------------------------------
+    def update_predictor(self, state: ContState):
+        tangent = getattr(self.alg, "tangent", Secant())
+        if isinstance(tangent, Bordered) and state.converged:
+            state.tau = self.kernels.bordered_tangent(
+                state.z, state.tau, self._params())
+        elif state.z is not state.z_old:
+            state.tau = self.kernels.secant_tangent(state.z, state.z_old,
+                                                    state.ds)
+
+    # ------------------------------------------------------------------
+    # recording (ref save!/get_state_summary, src/Continuation.jl:259-305)
+    # ------------------------------------------------------------------
+    def record(self, state: ContState) -> dict:
+        rec = self.prob.record_from_solution(state.z.u, state.p)
+        if not isinstance(rec, dict):
+            rec = {"record": rec}
+        rec = {k: (v.detach().cpu().numpy() if isinstance(v, torch.Tensor)
+                   else np.asarray(v)) for k, v in rec.items()}
+        rec.update({
+            "param": state.p,
+            "itnewton": state.itnewton,
+            "itlinear": state.itlinear,
+            "ds": state.ds,
+            "n_unstable": state.n_unstable[0],
+            "n_imag": state.n_imag[0],
+            "stable": state.n_unstable[0] == 0,
+            "step": state.step,
+        })
+        return rec
+
+    def save(self, res: ContResult, state: ContState):
+        cp = self.contparams
+        res.append(self.record(state))
+        if cp.compute_eigenelements and state.eigvals is not None and \
+                state.step % cp.save_eig_every_step == 0:
+            res.eig.append({
+                "eigenvals": state.eigvals.copy(),
+                "eigenvecs": (state.eigvecs.detach().cpu().numpy()
+                              if (cp.save_eigenvectors and
+                                  state.eigvecs is not None) else None),
+                "step": state.step,
+                "converged": state.converged_eig,
+            })
+        if cp.save_sol_every_step > 0 and \
+                state.step % cp.save_sol_every_step == 0:
+            x = state.z.u
+            if self.prob.save_solution is not None:
+                par = self.prob.set_lens_param(self._params(), state.z.p)
+                x = self.prob.save_solution(x, par)
+            res.sol.append({"x": x, "p": state.p, "step": state.step})
+
+    # ------------------------------------------------------------------
+    def done(self, state: ContState) -> bool:
+        cp = self.contparams
+        if state.stopcontinuation:
+            return True
+        if state.step >= cp.max_steps:
+            return True
+        # stalled at a parameter bound: previous and current point both
+        # clamped to the same boundary value
+        if state.step > 1 and state.converged:
+            for bound in (cp.p_min, cp.p_max):
+                if (abs(state.p - bound) < 1e-13 and
+                        abs(state.p_old - bound) < 1e-13):
+                    return True
+        return False

@@ -1,0 +1,318 @@
+"""Eigen solvers on the SH2d path — the port of the parts of
+`jl_tpu/linalg/eig.py` this slice runs (ref src/EigSolver.jl:4-266).
+
+An eigen solver is a callable
+
+    eig(J, nev) -> (values, vectors, converged, n_iter)
+
+returning the `nev` rightmost eigenvalues sorted by decreasing real part
+and the matching eigenvectors as columns of `vectors` (the JAX package's
+layout at the public interface).  Here: `DenseEig` (host LAPACK) and the
+preconditioned blocked `LOBPCGEig` for symmetric jacobians.  Inside
+LOBPCG a block is stored (k, n) row-major, so a block of states reshapes
+to (k, *state_shape) without a transposing copy and the model's J.v
+kernel takes the whole block in one launch.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Callable, Optional
+
+import numpy as np
+import torch
+
+from ..core.state import ravel
+from .linear import is_operator
+
+COMPLEX_DTYPE = torch.complex128
+
+
+def _host_eig_sorted(A: np.ndarray):
+    """Host LAPACK eig, sorted by decreasing real part (ties: decreasing
+    imaginary part, so complex pairs come out adjacently)."""
+    w, v = np.linalg.eig(A)
+    order = np.lexsort((-w.imag, -w.real))
+    return w[order].astype(np.complex128), v[:, order].astype(np.complex128)
+
+
+def dense_eig(A: torch.Tensor, with_vectors: bool = True):
+    w, v = _host_eig_sorted(A.detach().cpu().numpy())
+    w = torch.as_tensor(w, device=A.device)
+    return (w, torch.as_tensor(v, device=A.device)) if with_vectors \
+        else (w, None)
+
+
+@dataclasses.dataclass(frozen=True)
+class DenseEig:
+    """Dense eigensolver (ref `DefaultEig`, src/EigSolver.jl:37-64)."""
+
+    def __call__(self, J, nev: int):
+        if is_operator(J):
+            raise TypeError("DenseEig needs a dense matrix jacobian; use "
+                            "LOBPCGEig for matrix-free symmetric operators")
+        w, v = dense_eig(J, with_vectors=True)
+        return w[:nev], v[:, :nev], True, 1
+
+
+@dataclasses.dataclass(frozen=True)
+class FlatOperator:
+    """A flat-vector matvec with its dimension for the eig layer.
+    `block_op`, when given, applies the operator to a (k, n) block of
+    rows in one call; otherwise a block is applied row by row."""
+
+    op: Callable
+    n: int
+    dtype: Any = None
+    device: Any = None
+    block_op: Optional[Callable] = None
+
+    @property
+    def example_vector(self):
+        return torch.zeros((self.n,), dtype=self.dtype or torch.float64,
+                           device=self.device)
+
+    def block(self, X: torch.Tensor) -> torch.Tensor:
+        if self.block_op is not None:
+            return self.block_op(X)
+        return torch.stack([self.op(x) for x in X])
+
+    def __call__(self, v):
+        return self.op(v)
+
+
+def _as_flat_matvec(J):
+    """Normalize a jacobian representation to (matvec, block matvec, n,
+    dtype, device) on flat vectors / (k, n) row blocks."""
+    if is_operator(J):
+        probe = getattr(J, "example_vector", None)
+        if probe is None:
+            raise ValueError(
+                "matrix-free eigensolve needs the operator to expose "
+                "`example_vector` (a state with the right structure) or "
+                "wrap it with FlatOperator(op, n)")
+        flat0, unravel = ravel(probe)
+
+        def matvec(v):
+            return ravel(J(unravel(v)))[0]
+
+        if hasattr(J, "block"):
+            block = J.block
+        else:
+            def block(X):
+                return torch.stack([matvec(x) for x in X])
+
+        return matvec, block, flat0.shape[0], flat0.dtype, flat0.device
+
+    def matvec(v):
+        return J @ v
+
+    def block(X):
+        return X @ J.T
+
+    return matvec, block, J.shape[0], J.dtype, J.device
+
+
+def _rownorm(M):
+    return torch.clamp_min(torch.linalg.vector_norm(M, dim=1), 1e-30)
+
+
+@dataclasses.dataclass(frozen=True)
+class LOBPCGEig:
+    """Preconditioned blocked LOBPCG for SYMMETRIC jacobians.
+
+    Returns the `nev` algebraically-largest (= rightmost, the spectrum is
+    real) eigenpairs.  For gradient-flow PDE jacobians — e.g.
+    Swift-Hohenberg's J = -(I+Delta)^2 + diag(l + 2 nu u - 3 u^2) — the
+    stability sweep needs no inner solves: with the model's spectral
+    preconditioner it converges in a handful of blocked J@X applications
+    and small dense Rayleigh-Ritz problems.  It replaces the reference's
+    `EigArpack(0.1, :LM)` shift-invert sweep on the SH2d flagship (ref
+    examples/SH2d-fronts.jl:91).
+
+    Each iteration re-applies A to the full orthonormalized [X | W | P]
+    basis (one blocked call of 3k matvecs) rather than rotating cached
+    products, so a rank-deficient basis near convergence wastes a few
+    search directions instead of amplifying noise.
+
+    `precond` maps a (k, n) block of rows R to T R with T ~ (alpha I - J)^-1
+    in the loose preconditioning sense (the model's spectral inverse of the
+    linear part works).
+
+    CONTRACT: J must be symmetric.  `symmetry_check` probes
+    `|<Jv,w> - <v,Jw>|` on two random vectors and raises on misuse.  With
+    `refine_iters > 0` the result is refined on the full-precision operator
+    `J_hi`: a reduced-precision sweep stalls at an eigenvalue error
+    ~ 3k * eps_f32 * ||A||; a few f64 Rayleigh-Ritz passes on the f32
+    subspace restore full-precision eigenvalues.
+    """
+
+    maxiter: int = 30
+    tol: float = 1e-4
+    precond: Optional[Callable] = None
+    extra: int = 2          # guard vectors beyond nev (convergence buffer)
+    compute_dtype: Any = None
+    seed: int = 7
+    refine_iters: int = 2
+    symmetry_check: bool = True
+
+    def seed_cols(self, nev: int) -> int:
+        # warm-start block = the converged eigenvector block
+        return nev
+
+    def _check_symmetry(self, matvec, n, dtype, device):
+        gen = torch.Generator(device=device).manual_seed(314)
+        v = torch.randn((n,), generator=gen, dtype=dtype, device=device)
+        w = torch.randn((n,), generator=gen, dtype=dtype, device=device)
+        jv, jw = matvec(v), matvec(w)
+        asym = abs(float(torch.dot(jv, w) - torch.dot(v, jw)))
+        nrm = torch.linalg.vector_norm
+        scale = float(nrm(jv) * nrm(w) + nrm(v) * nrm(jw))
+        tol = 1e3 * float(torch.finfo(dtype).eps)
+        if asym > tol * max(scale, 1e-30):
+            raise ValueError(
+                "LOBPCGEig requires a SYMMETRIC operator: symmetry probe "
+                f"|<Jv,w> - <v,Jw>| = {asym:.3e} (scale {scale:.3e}). "
+                "Pass symmetry_check=False if the probe misfires.")
+
+    def __call__(self, J, nev: int, v0=None, J_hi=None):
+        if self.compute_dtype is not None and not is_operator(J):
+            if J_hi is None and self.refine_iters > 0:
+                J_hi = J
+            J = J.to(self.compute_dtype)
+        matvec, blockA, n, dtype, device = _as_flat_matvec(J)
+        if self.symmetry_check:
+            self._check_symmetry(matvec, n, dtype, device)
+        k = min(nev + self.extra, n)
+        eps = float(torch.finfo(dtype).eps)
+        tol_eff = max(self.tol, 50.0 * eps)
+        eps_c = math.sqrt(eps)
+
+        if self.precond is None:
+            def blockT(R):
+                return R
+        else:
+            def blockT(R):
+                return self.precond(R).to(R.dtype)
+
+        gen = torch.Generator(device=device).manual_seed(self.seed)
+
+        def randn_block():
+            return torch.randn((k, n), generator=gen, dtype=dtype,
+                               device=device)
+
+        X0 = randn_block()
+        if v0 is not None:
+            v0 = torch.as_tensor(v0).to(dtype=dtype, device=device)
+            if v0.dim() == 1:
+                v0 = v0.reshape(n, -1)
+            cols = min(v0.shape[1], k)
+            if float(torch.linalg.vector_norm(v0)) > 0:
+                X0[:cols] = v0[:, :cols].T
+
+        def _cholqr(S):
+            # CholQR with diagonal jitter on a (m, n) row block; two passes
+            # give QR-grade orthogonality for the moderately conditioned
+            # bases this loop produces
+            m = S.shape[0]
+            G = S @ S.T
+            G = G + (10.0 * eps * torch.trace(G) / m) * torch.eye(
+                m, dtype=dtype, device=device)
+            L, _ = torch.linalg.cholesky_ex(G)
+            return torch.linalg.solve_triangular(L, S, upper=False)
+
+        def _ritz(S):
+            """Orthonormalize S and Rayleigh-Ritz the top-k pairs."""
+            Q = _cholqr(_cholqr(S))
+            AQ = blockA(Q)
+            G = Q @ AQ.T
+            G = 0.5 * (G + G.T)
+            w, Y = torch.linalg.eigh(G)          # ascending
+            Yk = Y.flip(1)[:, :k]
+            return w.flip(0)[:k], Yk.T @ Q, Yk.T @ AQ
+
+        def _conv(theta, X, AX):
+            rn = _rownorm(AX - theta[:, None] * X)
+            scale = torch.clamp_min(torch.abs(theta), 1.0)
+            return bool(torch.all(rn[:nev] < tol_eff * scale[:nev]))
+
+        X0 = X0 / _rownorm(X0)[:, None]
+        theta, X, AX = _ritz(X0)
+        # seed P with random orthonormalized directions so the first
+        # iteration's basis is full rank without a special case
+        P = randn_block()
+        P = P / _rownorm(P)[:, None]
+
+        it = 0
+        done = _conv(theta, X, AX)
+        while it < self.maxiter and not done:
+            W = blockT(AX - theta[:, None] * X)
+            # pre-orthogonalize W against X (keeps the QR well conditioned)
+            W = W - (W @ X.T) @ X
+            # a converged pair's residual can underflow to ~zero; refill
+            # such rows with fresh random directions so the CholQR jitter
+            # never admits a spurious theta~0 Ritz pair
+            wn = _rownorm(W)
+            wfill = randn_block()
+            W = torch.where((wn > eps_c)[:, None], W / wn[:, None],
+                            wfill / _rownorm(wfill)[:, None])
+            theta_n, Xn, AXn = _ritz(torch.cat([X, W, P], dim=0))
+            # conjugate-direction block: the part of the new iterate outside
+            # the old X span, refilled where it vanished
+            Pn = Xn - (Xn @ X.T) @ X
+            ps = _rownorm(Pn)
+            refill = randn_block()
+            refill = refill / _rownorm(refill)[:, None]
+            P = torch.where((ps > eps_c)[:, None], Pn / ps[:, None], refill)
+            theta, X, AX = theta_n, Xn, AXn
+            done = _conv(theta, X, AX)
+            it += 1
+
+        if J_hi is not None and self.refine_iters > 0:
+            theta, X, AX = self._refine(J_hi, X, k)
+
+        converged = _conv(theta, X, AX)
+        vals = theta[:nev].to(COMPLEX_DTYPE)
+        vecs = X[:nev].T.to(COMPLEX_DTYPE)
+        return vals, vecs, converged, it
+
+    def _refine(self, J_hi, X_lo, k):
+        """High-precision Rayleigh-Ritz + preconditioned-step passes on the
+        reduced-precision subspace (see `refine_iters`)."""
+        _, blockA, _, dtype, device = _as_flat_matvec(J_hi)
+        eps = float(torch.finfo(dtype).eps)
+
+        if self.precond is None:
+            def blockT(R):
+                return R.to(dtype)
+        else:
+            def blockT(R):
+                return self.precond(R).to(dtype)
+
+        def _cholqr2(S):
+            m = S.shape[0]
+            eye = torch.eye(m, dtype=dtype, device=device)
+            for _ in range(2):
+                G = S @ S.T
+                G = G + (10.0 * eps * torch.trace(G) / m) * eye
+                L, _ = torch.linalg.cholesky_ex(G)
+                S = torch.linalg.solve_triangular(L, S, upper=False)
+            return S
+
+        X = X_lo.to(dtype)
+        W = None
+        for i in range(self.refine_iters):
+            S = X if W is None else torch.cat([X, W], dim=0)
+            Q = _cholqr2(S)
+            AQ = blockA(Q)
+            G = Q @ AQ.T
+            G = 0.5 * (G + G.T)
+            w, Y = torch.linalg.eigh(G)
+            Yk = Y.flip(1)[:, :k]
+            theta, X, AX = w.flip(0)[:k], Yk.T @ Q, Yk.T @ AQ
+            if i + 1 == self.refine_iters:
+                break      # last pass: W would be unused
+            W = blockT(AX - theta[:, None] * X)
+            W = W - (W @ X.T) @ X
+            W = W / _rownorm(W)[:, None]
+        return theta, X, AX

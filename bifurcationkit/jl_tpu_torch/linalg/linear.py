@@ -1,0 +1,302 @@
+"""Linear solvers — the port of `jl_tpu/linalg/linear.py`
+(ref src/LinearSolver.jl:8-414).
+
+A linear solver is a frozen-dataclass callable
+
+    ls(J, rhs, a0=0.0, a1=1.0) -> (sol, converged, n_iter)
+
+solving ``(a0 * I + a1 * J) x = rhs`` (`converged` a Python bool, `n_iter`
+a Python int); ``J`` is a dense 2-D tensor or any callable ``v -> J @ v``
+on states.  The JAX package's `lax.while_loop`s are Python loops here:
+each Krylov iteration reads its residual estimate on the host (one device
+sync per iteration), and the small Hessenberg least-squares runs on the
+host in the working dtype.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Optional
+
+import numpy as np
+import torch
+
+from ..core.state import ravel, tree_axpby
+
+
+# ---------------------------------------------------------------------------
+# Operator utilities
+# ---------------------------------------------------------------------------
+
+
+def is_operator(J) -> bool:
+    return callable(J) and not isinstance(J, torch.Tensor)
+
+
+def apply_J(J, v):
+    """Apply a jacobian representation (matrix or callable) to state v."""
+    if is_operator(J):
+        return J(v)
+    flat, unravel = ravel(v)
+    return unravel(J @ flat)
+
+
+def shifted_apply(J, v, a0, a1):
+    """(a0 I + a1 J) v   (ref `_axpy_op`, src/LinearSolver.jl:55-76)."""
+    return tree_axpby(a0, v, a1, apply_J(J, v))
+
+
+def materialize_shift(J: torch.Tensor, a0, a1) -> torch.Tensor:
+    if a0 == 0 and a1 == 1:
+        return J
+    return a1 * J + a0 * torch.eye(J.shape[0], dtype=J.dtype, device=J.device)
+
+
+# ---------------------------------------------------------------------------
+# Dense direct solver
+# ---------------------------------------------------------------------------
+
+
+def dense_factor(A):
+    """LU handle for repeated solves."""
+    return torch.linalg.lu_factor(A)
+
+
+def dense_factor_solve(fac, b):
+    LU, piv = fac
+    return torch.linalg.lu_solve(LU, piv, b.unsqueeze(-1)).squeeze(-1)
+
+
+def dense_solve(A, b):
+    return dense_factor_solve(dense_factor(A), b)
+
+
+@dataclasses.dataclass(frozen=True)
+class DenseLS:
+    """Direct dense solve via LU (ref `DefaultLS`, src/LinearSolver.jl:94-117)."""
+
+    def __call__(self, J, rhs, a0=0.0, a1=1.0):
+        A = materialize_shift(J, a0, a1)
+        flat, unravel = ravel(rhs)
+        return unravel(dense_solve(A, flat)), True, 1
+
+    def solve_two(self, J, r1, r2, a0=0.0, a1=1.0):
+        """Two RHS sharing one factorization (ref src/LinearSolver.jl:119-131)."""
+        A = materialize_shift(J, a0, a1)
+        f1, unravel1 = ravel(r1)
+        f2, unravel2 = ravel(r2)
+        fac = dense_factor(A)
+        return (unravel1(dense_factor_solve(fac, f1)),
+                unravel2(dense_factor_solve(fac, f2)), True, (1, 1))
+
+
+# ---------------------------------------------------------------------------
+# GMRES
+# ---------------------------------------------------------------------------
+
+
+def _sequential_solve_two(solver, J, r1, r2, a0=0.0, a1=1.0):
+    """Two RHS one after the other.  The JAX package vmaps the two lanes;
+    a vmapped while_loop freezes a finished lane, so each lane's result
+    is the same as this sequential one."""
+    s1, c1, i1 = solver(J, r1, a0=a0, a1=a1)
+    s2, c2, i2 = solver(J, r2, a0=a0, a1=a1)
+    return s1, s2, bool(c1) and bool(c2), (i1, i2)
+
+
+@dataclasses.dataclass(frozen=True)
+class GMRES:
+    """Restarted GMRES (CGS2 Arnoldi + Givens least squares) with a
+    preallocated `(restart+1, n)` Krylov basis on the device."""
+
+    restart: int = 30
+    maxiter: int = 200           # total matvecs bound
+    rtol: float = 1e-8
+    atol: float = 1e-12
+    precond: Optional[Callable] = None   # left preconditioner: v -> M^{-1} v
+
+    def __call__(self, J, rhs, a0=0.0, a1=1.0):
+        flat_rhs, unravel = ravel(rhs)
+
+        def matvec(xf):
+            return ravel(shifted_apply(J, unravel(xf), a0, a1))[0]
+
+        if self.precond is not None:
+            prec = self.precond
+
+            def matvec_p(xf):
+                return ravel(prec(unravel(matvec(xf))))[0]
+
+            pb = ravel(prec(unravel(flat_rhs)))[0]
+            sol, res, it = _gmres_flat(matvec_p, pb, self.restart,
+                                       self.maxiter, self.rtol, self.atol)
+        else:
+            sol, res, it = _gmres_flat(matvec, flat_rhs, self.restart,
+                                       self.maxiter, self.rtol, self.atol)
+        b_norm = float(torch.linalg.vector_norm(flat_rhs))
+        converged = res <= max(self.rtol * b_norm, self.atol)
+        return unravel(sol), converged, it
+
+    def solve_two(self, J, r1, r2, a0=0.0, a1=1.0):
+        return _sequential_solve_two(self, J, r1, r2, a0=a0, a1=a1)
+
+
+def _torch_to_np_dtype(dtype):
+    return np.float32 if dtype == torch.float32 else np.float64
+
+
+def _gmres_flat(matvec, b, restart, maxiter, rtol, atol):
+    """Flat-vector restarted GMRES.  Returns (x, final_resnorm, n_matvec)
+    with the JAX package's counting: each cycle costs one residual matvec
+    plus one per Arnoldi step."""
+    n = b.shape[0]
+    dtype = b.dtype
+    npdt = _torch_to_np_dtype(dtype)
+    # dtype-aware division guard: the f64 habit of 1e-300 underflows to 0
+    # in f32, turning the happy breakdown h_{j+1,j} -> 0 into w / 0 = NaN
+    tiny = float(torch.finfo(dtype).tiny)
+    m = min(restart, n)
+    b_norm = float(torch.linalg.vector_norm(b))
+    tol = max(rtol * b_norm, atol)
+
+    x = torch.zeros_like(b)
+    res, nmv, done = b_norm, 0, b_norm <= tol
+    V = torch.empty((m + 1, n), dtype=dtype, device=b.device)
+    while not done and nmv < maxiter:
+        r = b - matvec(x)
+        beta_t = torch.linalg.vector_norm(r)
+        beta = float(beta_t)
+        V[0] = r / max(beta, tiny) if beta > 0 else r
+        # Hessenberg columns after rotation, Givens pairs and the rotated
+        # rhs g, all on the host in the working dtype (numpy keeps f32
+        # arithmetic in f32, as the JAX package does on the device)
+        R = np.zeros((m, m), npdt)
+        cs = np.zeros(m, npdt)
+        sn = np.zeros(m, npdt)
+        g = np.zeros(m + 1, npdt)
+        g[0] = npdt(beta)
+        res = beta
+        j = 0
+        while j < m and res > tol:
+            w = matvec(V[j])
+            # classical Gram-Schmidt with reorthogonalization (CGS2) on the
+            # j+1 filled rows of the basis
+            Vj = V[:j + 1]
+            h1 = Vj @ w
+            w = w - h1 @ Vj
+            h2 = Vj @ w
+            w = w - h2 @ Vj
+            hlast_t = torch.linalg.vector_norm(w)
+            h_host = torch.cat([h1 + h2, hlast_t[None]]).cpu().numpy()
+            hlast = float(h_host[-1])
+            if hlast > tiny:
+                V[j + 1] = w / hlast_t
+            else:
+                V[j + 1] = 0.0
+            h = h_host.astype(npdt)
+            for i in range(j):        # previous rotations
+                hi = cs[i] * h[i] + sn[i] * h[i + 1]
+                h[i + 1] = -sn[i] * h[i] + cs[i] * h[i + 1]
+                h[i] = hi
+            denom = np.sqrt(h[j] ** 2 + h[j + 1] ** 2)
+            if denom > 0:
+                c = h[j] / max(denom, npdt(tiny))
+                s = h[j + 1] / max(denom, npdt(tiny))
+            else:
+                c, s = npdt(1.0), npdt(0.0)
+            h[j] = c * h[j] + s * h[j + 1]
+            cs[j], sn[j] = c, s
+            gj1 = -s * g[j]
+            g[j] = c * g[j]
+            g[j + 1] = gj1
+            R[:j + 1, j] = h[:j + 1]
+            res = float(abs(gj1))
+            j += 1
+        if j > 0:
+            y = _back_substitute(R[:j, :j], g[:j])
+            x = x + torch.as_tensor(y, device=b.device) @ V[:j]
+        nmv += j + 1
+        done = res <= tol
+    return x, res, nmv
+
+
+def _back_substitute(R, g):
+    """Upper-triangular solve in R's dtype."""
+    y = np.zeros_like(g)
+    for i in range(len(g) - 1, -1, -1):
+        y[i] = (g[i] - R[i, i + 1:] @ y[i + 1:]) / R[i, i]
+    return y
+
+
+# ---------------------------------------------------------------------------
+# Mixed-precision iterative refinement
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class IterativeRefinement:
+    """Solve (a0 I + a1 J) x = rhs to f64 accuracy with all Krylov work in a
+    low precision (default f32) and a handful of f64 residual corrections:
+
+        repeat:  r = rhs - A x   (accurate dtype, one matvec)
+                 d = inner_solve(A_low, r_low)   (all matvecs low precision)
+                 x = x + d
+
+    The low-precision operator comes from `J.low` when the jacobian carries
+    one (the continuation kernels attach an f32-built operator, see
+    kernels._pick_jac); otherwise the accurate operator is wrapped with
+    casts (correct, without the compute saving).
+    """
+
+    inner: Any = dataclasses.field(
+        default_factory=lambda: GMRES(restart=40, maxiter=160, rtol=1e-5))
+    low_dtype: Any = torch.float32
+    refinements: int = 4            # max outer passes
+    rtol: float = 1e-10
+    atol: float = 1e-13
+
+    def __call__(self, J, rhs, a0=0.0, a1=1.0):
+        flat_rhs, unravel = ravel(rhs)
+        lo = self.low_dtype
+
+        J_low = getattr(J, "low", None)
+        if J_low is None:
+            def J_low(v_lo):
+                out = apply_J(J, unravel(v_lo.to(flat_rhs.dtype)))
+                return ravel(out)[0].to(lo)
+
+        def matvec_acc(xf):
+            return ravel(shifted_apply(J, unravel(xf), a0, a1))[0]
+
+        b_norm = float(torch.linalg.vector_norm(flat_rhs))
+        tol = max(self.rtol * b_norm, self.atol)
+
+        x = torch.zeros_like(flat_rhs)
+        r, rn, k, itl = flat_rhs, b_norm, 0, 0
+        while rn > tol and k < self.refinements:
+            d_lo, _, it = self.inner(J_low, r.to(lo), a0=a0, a1=a1)
+            x = x + ravel(d_lo)[0].to(flat_rhs.dtype)
+            # the residual of the new iterate closes this pass and opens the
+            # next one (the JAX package recomputes the same value there)
+            r = flat_rhs - matvec_acc(x)
+            rn = float(torch.linalg.vector_norm(r))
+            k += 1
+            itl += it
+        return unravel(x), rn <= tol, itl
+
+    def solve_two(self, J, r1, r2, a0=0.0, a1=1.0):
+        return _sequential_solve_two(self, J, r1, r2, a0=a0, a1=a1)
+
+
+class PairedOperator:
+    """Accurate matvec closure carrying a low-precision twin as `.low` (a
+    flat-vector operator built at cast primals).  Consumed by
+    `IterativeRefinement`; the accurate operator everywhere else."""
+
+    __slots__ = ("op", "low")
+
+    def __init__(self, op, low):
+        self.op = op
+        self.low = low
+
+    def __call__(self, v):
+        return self.op(v)
