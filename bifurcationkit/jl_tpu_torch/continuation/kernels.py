@@ -45,8 +45,8 @@ def _cast_floats(tree, dt):
 
 def _flat_op(prob, u, par, out_dtype=None) -> FlatOperator:
     """J(u, par) as a flat-vector operator; its block form applies J to a
-    (k, n) block of rows in one call when the model's `jac_op` takes a
-    batch, through `torch.func.vmap` when J is the jvp of F."""
+    (k, n) block of rows in one call through the model's `jac_op` (which
+    takes a batch), or through `torch.func.vmap` when J is the jvp of F."""
     flat0, unravel = ravel(u)
     n = flat0.shape[0]
     J = prob.jacobian_operator(u, par)
@@ -59,16 +59,14 @@ def _flat_op(prob, u, par, out_dtype=None) -> FlatOperator:
         of = ravel(J(unravel(v)))[0]
         return of if out_dtype is None else of.to(out_dtype)
 
-    block = None
-    if prob.jac_op is not None and prob.jac_op_batched \
-            and isinstance(u, torch.Tensor):
+    if prob.jac_op is not None:
         shape = tuple(u.shape)
 
         def block(X):
             if out_dtype is not None:
                 X = X.to(out_dtype)
             return J(X.reshape((X.shape[0],) + shape)).reshape(X.shape[0], n)
-    elif prob.jac_op is None:
+    else:
         block = torch.func.vmap(op)
     return FlatOperator(op, n, out_dtype or flat0.dtype, flat0.device, block)
 

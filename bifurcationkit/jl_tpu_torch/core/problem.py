@@ -50,11 +50,10 @@ class BifurcationProblem:
 
     # optional user-supplied derivatives (ref BifFunction, src/Problems.jl:89-184)
     jac: Optional[Callable] = None          # (u, params) -> dense matrix
-    jac_op: Optional[Callable] = None       # (u, params) -> (v -> J v) operator
-    # True when the `jac_op` operator also takes a leading batch dimension
-    # (v of shape (K, *u.shape)): the eigensolver then applies J to a whole
-    # block in one call instead of one call per column
-    jac_op_batched: bool = False
+    # (u, params) -> (v -> J v) operator on a tensor state u; the operator
+    # takes v of shape u.shape or a batch (K, *u.shape), so the eigensolver
+    # applies J to a whole block in one call
+    jac_op: Optional[Callable] = None
     jac_adjoint: Optional[Callable] = None  # (u, params) -> (v -> J^T v)
     d2F_user: Optional[Callable] = None     # (u, params, dx1, dx2)
     d3F_user: Optional[Callable] = None     # (u, params, dx1, dx2, dx3)

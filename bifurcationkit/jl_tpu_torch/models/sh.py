@@ -12,18 +12,7 @@ import torch
 
 from .. import DEFAULT_DTYPE, resolve_device
 from ..core.problem import BifurcationProblem
-from ..ops.sh_jv import sh_jv
-
-
-def _lap_neumann(u, h2, axis):
-    """1D second difference with the reference's modified-corner (Neumann)
-    closure (ref examples/SH2d-fronts.jl:20-24: D2[1,1] = -1/h^2): the
-    edge value is replicated one cell beyond the border."""
-    n = u.shape[axis]
-    um = torch.cat([u.narrow(axis, 0, 1), u.narrow(axis, 0, n - 1)], dim=axis)
-    up = torch.cat([u.narrow(axis, 1, n - 1), u.narrow(axis, n - 1, 1)],
-                   dim=axis)
-    return (um - 2 * u + up) / h2
+from ..ops.sh_jv import lap_neumann, sh_jv
 
 
 # ---------------------------------------------------------------------------
@@ -100,7 +89,7 @@ def swift_hohenberg_2d(Nx: int = 151, Ny: int = 100, lx: float = 8 * np.pi,
     hx2, hy2 = float(hx * hx), float(hy * hy)
 
     def lap(u):
-        return _lap_neumann(u, hx2, -2) + _lap_neumann(u, hy2, -1)
+        return lap_neumann(u, hx2, -2) + lap_neumann(u, hy2, -1)
 
     def F(u, par):
         v = u + lap(u)
@@ -144,7 +133,7 @@ def swift_hohenberg_2d(Nx: int = 151, Ny: int = 100, lx: float = 8 * np.pi,
         F, u0=torch.as_tensor(sol0, dtype=dtype, device=dev),
         params={"l": torch.tensor(l, dtype=dtype, device=dev),
                 "nu": torch.tensor(nu, dtype=dtype, device=dev)},
-        lens="l", jac_op=jac_op, jac_op_batched=True,
+        lens="l", jac_op=jac_op,
         d2F_user=d2F, d3F_user=d3F, record_from_solution=record)
 
     # exact spectral preconditioner: DCT-II diagonalizes the

@@ -140,17 +140,26 @@ def sh_jv(u: torch.Tensor, v: torch.Tensor, scal: torch.Tensor
 sh_jv.launches = 0
 
 
+def lap_neumann(u: torch.Tensor, h2, axis: int) -> torch.Tensor:
+    """1D second difference with the reference's modified-corner (Neumann)
+    closure (ref examples/SH2d-fronts.jl:20-24: D2[1,1] = -1/h^2): the
+    edge value is replicated one cell beyond the border."""
+    n = u.shape[axis]
+    um = torch.cat([u.narrow(axis, 0, 1), u.narrow(axis, 0, n - 1)], dim=axis)
+    up = torch.cat([u.narrow(axis, 1, n - 1), u.narrow(axis, n - 1, 1)],
+                   dim=axis)
+    return (um - 2 * u + up) / h2
+
+
 def sh_jv_plain(u: torch.Tensor, v: torch.Tensor, scal: torch.Tensor
                 ) -> torch.Tensor:
     """The unfused formulation (counterpart of `sh_jv_reference`,
     `jl_tpu/ops/pallas_sh.py`); v may carry a leading batch dimension."""
-    from ..models.sh import _lap_neumann
-
     l, nu, inv_hx2, inv_hy2 = scal[0], scal[1], scal[2], scal[3]
 
     def lap(a):
-        return (_lap_neumann(a, 1.0 / inv_hx2, -2)
-                + _lap_neumann(a, 1.0 / inv_hy2, -1))
+        return (lap_neumann(a, 1.0 / inv_hx2, -2)
+                + lap_neumann(a, 1.0 / inv_hy2, -1))
 
     w = v + lap(v)
     L1v = w + lap(w)

@@ -194,9 +194,10 @@ def main_path(card, warmup=2, timed=6, detect_steps=6):
         step("warmup")
     for _ in range(timed):
         step("timed")
-    warm = [s["seconds"] for s in steps if s["kind"] == "timed"]
+    timed_steps = [s for s in steps if s["kind"] == "timed"]
+    warm = [s["seconds"] for s in timed_steps]
     steps_per_s = timed / sum(warm)
-    breakdown(it, state)
+    breakdown(it, state, timed_steps)
 
     t1 = time.perf_counter()
     _, cp_det = flagship_config(prob, detect_steps)
@@ -247,10 +248,15 @@ def _profile(fn):
     return _kernel_rows(prof), wall
 
 
-def breakdown(it, state):
+def breakdown(it, state, timed_steps):
     """Where one warm flagship step goes: corrector against eigensolve on
-    the host clock, then one profiled step — the card's busy time, its
-    idle share and the longest kernels."""
+    the host clock, then one profiled step — the card's busy time and the
+    longest kernels.  The profiler's own host work slows the step it
+    traces, so `idle_share` divides that busy time by the median wall
+    time of the unprofiled timed steps, and `idle_share_per_iteration`
+    scales it to the timed steps' inner iteration counts first.  The
+    share against the profiled step's own wall time is printed beside
+    them, labelled as such."""
     kn, par = it.kernels, it._params()
     z, tau, ds = state.z, state.tau, state.ds
     z_pred = BorderedState(u=z.u + ds * tau.u, p=z.p + ds * tau.p)
@@ -269,9 +275,23 @@ def breakdown(it, state):
         raise AssertionError("the profiled PALC step did not converge")
     busy = sum(r[1] for r in rows) * 1e-6
     sh = [r for r in rows if "sh_jv_kernel" in r[0]]
+    step_s = float(np.median([s["seconds"] for s in timed_steps]))
+    # the profiled step may take more inner iterations than a timed one:
+    # scale its busy time per inner iteration to the timed steps' counts
+    busy_per_it = busy / max(state.itlinear, 1)
+    timed_busy = busy_per_it * sum(s["itlinear"] for s in timed_steps)
+    timed_wall = sum(s["seconds"] for s in timed_steps)
     phase("breakdown", corrector_s=t_corr, eig_s=t_eig,
-          profiled_step_s=wall, device_busy_s=busy if rows else "not measured",
-          idle_share=(1 - busy / wall) if rows else "not measured",
+          median_timed_step_s=step_s, profiled_step_s=wall,
+          profiled_itlinear=state.itlinear,
+          median_timed_itlinear=float(np.median(
+              [s["itlinear"] for s in timed_steps])),
+          device_busy_s=busy if rows else "not measured",
+          idle_share=(1 - busy / step_s) if rows else "not measured",
+          idle_share_per_iteration=(1 - timed_busy / timed_wall) if rows
+          else "not measured",
+          idle_share_of_profiled_wall=(1 - busy / wall) if rows
+          else "not measured",
           sh_jv_device_s=sum(r[1] for r in sh) * 1e-6,
           sh_jv_calls=sum(r[2] for r in sh), kernels=len(rows),
           launches=sum(r[2] for r in rows),

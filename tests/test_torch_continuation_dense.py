@@ -10,6 +10,7 @@ both packages run the same f64 dense LU solves, whose results agree to
 rounding; `n_unstable` equal (LAPACK eigenvalues, none near zero at the
 recorded points); bordered solves 1e-10 relative.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -105,7 +106,8 @@ def test_bordered_solver_variants():
     for Sj, St in ((bj.MatrixBLS(), bt.MatrixBLS()),
                    (bj.BorderingBLS(), bt.BorderingBLS()),
                    (bj.MatrixFreeBLS(), bt.MatrixFreeBLS())):
-        xj, lj, _, _ = Sj(*to_j, args[0], jnp.asarray(R), *args[2:])
+        xj, lj, _, _ = jax.jit(lambda A, dR, dzu, R, S=Sj: S(
+            A, dR, dzu, args[0], R, *args[2:]))(*to_j, jnp.asarray(R))
         xt, lt, cv, _ = St(*to_t, args[0], torch.as_tensor(R), *args[2:])
         assert bool(cv)
         np.testing.assert_allclose(xt.numpy(), np.asarray(xj), rtol=1e-10,
@@ -115,15 +117,16 @@ def test_bordered_solver_variants():
     # k-border block elimination and a bordered solver as a plain solver
     C, D = rng.standard_normal((n, 2)), rng.standard_normal((2, n))
     E, s = rng.standard_normal((2, 2)), rng.standard_normal(2)
-    xj, yj, _, _ = j_solve_bls_block(bj.DenseLS(), *(jnp.asarray(a) for a in
-                                                     (A, C, D, E, R, s)))
+    xj, yj, _, _ = jax.jit(lambda *a: j_solve_bls_block(bj.DenseLS(), *a))(
+        *(jnp.asarray(a) for a in (A, C, D, E, R, s)))
     xt, yt, _, _ = t_solve_bls_block(bt.DenseLS(), *(torch.as_tensor(a) for a
                                                      in (A, C, D, E, R, s)))
     np.testing.assert_allclose(xt.numpy(), np.asarray(xj), rtol=1e-10)
     np.testing.assert_allclose(yt.numpy(), np.asarray(yj), rtol=1e-10)
     B = rng.standard_normal((n + 1, n + 1)) + 4 * np.eye(n + 1)
     b = rng.standard_normal(n + 1)
-    zj, _, _ = bj.LSFromBLS()(jnp.asarray(B), jnp.asarray(b))
+    zj, _, _ = jax.jit(bj.LSFromBLS().__call__)(jnp.asarray(B),
+                                                 jnp.asarray(b))
     zt, _, _ = bt.LSFromBLS()(torch.as_tensor(B), torch.as_tensor(b))
     np.testing.assert_allclose(zt.numpy(), np.asarray(zj), rtol=1e-10)
     np.testing.assert_allclose(zt.numpy(), np.linalg.solve(B, b), rtol=1e-10)

@@ -7,6 +7,7 @@ seed and handed to both.
 Tolerance: 1e-12 relative for the derivatives and the preconditioner —
 the same f64 arithmetic in another order.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -49,25 +50,28 @@ def test_residual_and_derivatives():
     pj, pt, u0, ut, part = _pair(31, 20)
     rng = np.random.default_rng(0)
     v, w, z = (rng.standard_normal(u0.shape) for _ in range(3))
-    uj, vj, wj, zj = (jnp.asarray(a) for a in (u0, v, w, z))
     vt, wt, zt = (torch.as_tensor(a) for a in (v, w, z))
-    checks = [
-        (pt.F(ut, part), pj.F(uj, pj.params)),
-        (pt.dF(ut, part, vt), pj.dF(uj, pj.params, vj)),
-        (pt.dFdp(ut, part), pj.dFdp(uj, pj.params)),
-        (pt.d2F(ut, part, vt, wt), pj.d2F(uj, pj.params, vj, wj)),
-        (pt.d3F(ut, part, vt, wt, zt), pj.d3F(uj, pj.params, vj, wj, zj)),
-        (pt.dFt(ut, part, vt), pj.dFt(uj, pj.params, vj)),
-    ]
-    for got, ref in checks:
+
+    @jax.jit        # one compile instead of one per primitive
+    def forms(u, v, w, z):
+        par = pj.params
+        return (pj.F(u, par), pj.dF(u, par, v), pj.dFdp(u, par),
+                pj.d2F(u, par, v, w), pj.d3F(u, par, v, w, z),
+                pj.dFt(u, par, v))
+
+    refs = forms(*(jnp.asarray(a) for a in (u0, v, w, z)))
+    gots = (pt.F(ut, part), pt.dF(ut, part, vt), pt.dFdp(ut, part),
+            pt.d2F(ut, part, vt, wt), pt.d3F(ut, part, vt, wt, zt),
+            pt.dFt(ut, part, vt))
+    for got, ref in zip(gots, refs):
         assert _rel(got.numpy(), ref) < 1e-12
     # the jvp path of a problem without jac_op, and the dense jacobian
-    bare = pt.re_make(jac_op=None, jac_op_batched=False)
-    assert _rel(bare.dF(ut, part, vt).numpy(), pj.dF(uj, pj.params, vj)) \
-        < 1e-12
+    bare = pt.re_make(jac_op=None)
+    assert _rel(bare.dF(ut, part, vt).numpy(), refs[1]) < 1e-12
     pj8, pt8, u8, ut8, part8 = _pair(6, 5)
     assert _rel(pt8.jacobian(ut8, part8).numpy(),
-                pj8.jacobian(jnp.asarray(u8), pj8.params)) < 1e-12
+                jax.jit(lambda u: pj8.jacobian(u, pj8.params))(
+                    jnp.asarray(u8))) < 1e-12
 
 
 def test_dct_preconditioner():
@@ -81,7 +85,8 @@ def test_dct_preconditioner():
     assert np.abs(idct2(got).numpy() - x).max() < 1e-12 * np.abs(x).max()
     v = rng.standard_normal(u0.shape)
     for shift in (1.0, 0.3):
-        ref = pj.spectral_precond(jnp.asarray(v), shift=shift)
+        ref = jax.jit(lambda v: pj.spectral_precond(v, shift=shift))(
+            jnp.asarray(v))
         got = pt.spectral_precond(torch.as_tensor(v), shift=shift)
         assert _rel(got.numpy(), ref) < 1e-12
     # a block of flat rows (the eigensolver's layout) gives the same rows

@@ -72,7 +72,7 @@ def test_gmres(case):
         else:       # restarted, stops at maxiter unconverged
             kw = dict(restart=15, maxiter=120, rtol=1e-8)
             gj, gt = bj.GMRES(**kw), bt.GMRES(**kw)
-    xj, cj, ij = gj(Jj, jnp.asarray(b))
+    xj, cj, ij = jax.jit(lambda b: gj(Jj, b))(jnp.asarray(b))
     xt, ct, it = gt(Jt, torch.as_tensor(b))
     assert ct == bool(cj)
     assert it == int(ij)
@@ -100,12 +100,12 @@ def test_iterative_refinement(low):
     irt = bt.IterativeRefinement(
         inner=Counted(precond=pt.spectral_precond, **inner),
         low_dtype=getattr(torch, low), refinements=4, rtol=1e-10)
-    xj, cj, ij = irj(Jj, jnp.asarray(b))
+    xj, cj, ij = jax.jit(lambda b: irj(Jj, b))(jnp.asarray(b))
     xt, ct, it = irt(Jt, torch.as_tensor(b))
     assert ct == bool(cj) and ct
     assert _rel(xt.numpy(), xj) < 1e-10
-    first = bj.GMRES(precond=pj.spectral_precond, **inner)(
-        lambda v: Jj(v.astype(jnp.float64)).astype(getattr(jnp, low)),
+    first = jax.jit(lambda b: bj.GMRES(precond=pj.spectral_precond, **inner)(
+        lambda v: Jj(v.astype(jnp.float64)).astype(getattr(jnp, low)), b))(
         jnp.asarray(b, getattr(jnp, low)))[2]
     assert counts["t"][0] == int(first)
     if low == "float64":
