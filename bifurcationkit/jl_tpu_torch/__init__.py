@@ -5,8 +5,9 @@ Same layout and names as the JAX package (`core/`, `linalg/`, `newton.py`,
 `models/`, `ops/`, `continuation/`, `detection/`); plain PyTorch inside:
 functions on tensors, frozen dataclasses for solver configs, explicit
 `device=`/`dtype=` and explicit `torch.Generator`s.  The JAX package's
-only hand-written kernel on the SH2d path, the fused Swift-Hohenberg J.v,
-is a CUDA C++ kernel for Hopper (`csrc/sh_jv.cu`, bound in `ops/sh_jv.py`).
+Pallas kernels are CUDA C++ kernels for Hopper: the fused Swift-Hohenberg
+J.v (`csrc/sh_jv.cu`, bound in `ops/sh_jv.py`) and the DIA sparse
+matrix-vector product (`csrc/dia_spmv.cu`, bound in `ops/dia_spmv.py`).
 
 Defaults mirror the JAX package's x64 switch (`jl_tpu/__init__.py`): f64
 is the default dtype, passed explicitly (never through
@@ -44,8 +45,8 @@ check_tf32_off()
 from .core import (BifurcationProblem, BorderedState, ContinuationPar,  # noqa: E402
                    DotTheta, Lens, NewtonPar, as_lens, lens_get, lens_set,
                    setfield)
-from .linalg import (DenseEig, DenseLS, FlatOperator, GMRES,  # noqa: E402
-                     IterativeRefinement, LOBPCGEig)
+from .linalg import (ArnoldiEig, DenseEig, DenseLS, FlatOperator,  # noqa: E402
+                     GMRES, IterativeRefinement, LOBPCGEig, ShiftInvertEig)
 from .linalg.bordered import (BorderingBLS, LSFromBLS, MatrixBLS,  # noqa: E402
                               MatrixFreeBLS)
 from .newton import (NonLinearSolution, cb_max_norm,  # noqa: E402
@@ -53,6 +54,7 @@ from .newton import (NonLinearSolution, cb_max_norm,  # noqa: E402
 from .continuation import (Bordered, ContIterable, ContResult,  # noqa: E402
                            ContState, Natural, PALC, Secant, continuation)
 from .detection import SpecialPoint  # noqa: E402
+from .ops import BSRMatrix, DIAMatrix, ELLMatrix, dia_spmv  # noqa: E402
 
 __version__ = "0.1.0"
 

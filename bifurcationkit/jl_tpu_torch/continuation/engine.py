@@ -201,11 +201,13 @@ class ContIterable:
                                               self._params(), state.eig_seed)
             state.converged, state.itnewton = cv, itn
             state.itlinear, state.res = itl, res
+            # a failed step eigensolved the old point: its seed is kept, its
+            # spectrum (unchanged) is not recorded again
+            state.eig_seed = eig_seed
             if cv:
                 state.z_old = state.z
                 state.z = z_new
                 state.tau = tau_new
-                state.eig_seed = eig_seed
                 if cp.compute_eigenelements:
                     self._set_eig(state, vals, vecs, cv_eig)
             if state.stepsizecontrol:

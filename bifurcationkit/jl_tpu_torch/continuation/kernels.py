@@ -22,7 +22,8 @@ from ..core.state import (BorderedState, DotTheta, ravel, tree_axpy,
                           tree_map, tree_norm, tree_scale, tree_size,
                           tree_sub, tree_vdot, tree_zeros_like)
 from ..linalg.bordered import BorderingBLS
-from ..linalg.eig import DenseEig, FlatOperator, LOBPCGEig
+from ..linalg.eig import (ArnoldiEig, DenseEig, FlatOperator, LOBPCGEig,
+                          ShiftInvertEig)
 from ..linalg.linear import DenseLS, IterativeRefinement, PairedOperator
 
 
@@ -212,15 +213,21 @@ def make_kernels(prob, alg, contparams: ContinuationPar,
     # ------------------------------------------------------------------
     eigsolver = nopts.eigsolver
     nev = min(contparams.nev if nev is None else nev, n_state)
+    eigsolver = _widen_eigsolver(eigsolver, nev)
     # dense-matrix eigensolvers get jacfwd; iterative ones an operator
-    eig_needs_matrix = isinstance(eigsolver, DenseEig)
+    eig_needs_matrix = (isinstance(eigsolver, DenseEig)
+                        or (isinstance(eigsolver, ShiftInvertEig)
+                            and eigsolver.linsolver is None))
     # reduced-precision stability sweep: the J.v operator is built at the
     # eigensolver's compute_dtype (the SH kernel's f32 instance); Newton /
     # PALC residuals are untouched
     eig_dtype = getattr(eigsolver, "compute_dtype", None)
-    # LOBPCG warm-starts from the previous step's eigenvector block (the
-    # spectrum moves little along a branch)
-    eig_accepts_v0 = (isinstance(eigsolver, LOBPCGEig)
+    # warm starts from the previous step (the spectrum moves little along
+    # a branch): LOBPCG from the eigenvector block, Arnoldi-family solvers
+    # from one recombined Ritz direction, so a warm solve usually converges
+    # in one factorization
+    eig_accepts_v0 = (isinstance(eigsolver, (ArnoldiEig, ShiftInvertEig,
+                                             LOBPCGEig))
                       or bool(getattr(eigsolver, "accepts_v0", False)))
     seed_dtype = eig_dtype or like.dtype
     _seed_cols_fn = getattr(eigsolver, "seed_cols", None)
@@ -279,20 +286,22 @@ def make_kernels(prob, alg, contparams: ContinuationPar,
     # ------------------------------------------------------------------
     def palc_step(z: BorderedState, tau: BorderedState, ds, params,
                   eig_seed=None):
-        """Returns (z_new, tau_new, converged, itnewton, itlinear, res,
-        eigvals, eigvecs, converged_eig, eig_seed); on a failed corrector
-        z, tau and the seed come back unchanged and no eig is computed."""
+        """Returns (z_acc, tau_acc, converged, itnewton, itlinear, res,
+        eigvals, eigvecs, converged_eig, eig_seed).  On a failed corrector
+        z_acc, tau_acc are the old z, tau; the eigensolve runs on the
+        accepted point either way and refreshes the seed, as the JAX
+        package's fused step does."""
         z_pred = BorderedState(u=tree_axpy(ds, tau.u, z.u),
                                p=z.p + ds * tau.p)
         z_new, cv, itn, itl, res = palc_corrector(z_pred, z, tau, ds, params)
-        if not cv:
-            return z, tau, cv, itn, itl, res, None, None, True, eig_seed
-        tau_new = secant_tangent(z_new, z, ds)
+        z_acc, tau_acc = z, tau
+        if cv:
+            z_acc, tau_acc = z_new, secant_tangent(z_new, z, ds)
         vals, vecs, cv_eig, seed = None, None, True, eig_seed
         if contparams.compute_eigenelements:
-            vals, vecs, cv_eig, seed = eig(z_new.u, z_new.p, params,
+            vals, vecs, cv_eig, seed = eig(z_acc.u, z_acc.p, params,
                                            eig_seed)
-        return z_new, tau_new, cv, itn, itl, res, vals, vecs, cv_eig, seed
+        return z_acc, tau_acc, cv, itn, itl, res, vals, vecs, cv_eig, seed
 
     return SimpleNamespace(
         newton_fixed=newton_fixed,
@@ -305,3 +314,17 @@ def make_kernels(prob, alg, contparams: ContinuationPar,
         n_state=n_state,
         nev=nev,
     )
+
+
+def _widen_eigsolver(eig, nev):
+    """Make an Arnoldi solver's Krylov space large enough to hold `nev`
+    converged Ritz pairs (needed once the engine auto-raises nev), also
+    inside a wrapper such as `ShiftInvertEig`."""
+    if isinstance(eig, ArnoldiEig) and eig.krylov_dim < nev + 8:
+        return dataclasses.replace(eig, krylov_dim=nev + 12)
+    inner = getattr(eig, "eigsolver", None)
+    if inner is not None:
+        widened = _widen_eigsolver(inner, nev)
+        if widened is not inner:
+            return dataclasses.replace(eig, eigsolver=widened)
+    return eig

@@ -1,2 +1,3 @@
-from .eig import DenseEig, FlatOperator, LOBPCGEig
+from .eig import (ArnoldiEig, DenseEig, FlatOperator, LOBPCGEig,
+                  ShiftInvertEig)
 from .linear import DenseLS, GMRES, IterativeRefinement, PairedOperator

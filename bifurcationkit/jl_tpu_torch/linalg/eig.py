@@ -1,5 +1,5 @@
-"""Eigen solvers on the SH2d path — the port of the parts of
-`jl_tpu/linalg/eig.py` this slice runs (ref src/EigSolver.jl:4-266).
+"""Eigen solvers — the port of `jl_tpu/linalg/eig.py` (ref
+src/EigSolver.jl:4-266).
 
 An eigen solver is a callable
 
@@ -7,23 +7,32 @@ An eigen solver is a callable
 
 returning the `nev` rightmost eigenvalues sorted by decreasing real part
 and the matching eigenvectors as columns of `vectors` (the JAX package's
-layout at the public interface).  Here: `DenseEig` (host LAPACK) and the
-preconditioned blocked `LOBPCGEig` for symmetric jacobians.  Inside
+layout at the public interface).  Here: `DenseEig` (host LAPACK), the
+preconditioned blocked `LOBPCGEig` for symmetric jacobians, and the
+matrix-free non-symmetric pair `ArnoldiEig` / `ShiftInvertEig`.  Inside
 LOBPCG a block is stored (k, n) row-major, so a block of states reshapes
 to (k, *state_shape) without a transposing copy and the model's J.v
 kernel takes the whole block in one launch.
+
+Arnoldi keeps its Krylov basis on the device and solves the small
+Hessenberg eigenproblem on the host with numpy, as the JAX package's CPU
+route does; its on-device Francis QR and inverse iteration
+(`qr_eigvals`, `inverse_iteration_vectors`) work around TPU limits and
+are not ported.
 """
 from __future__ import annotations
 
 import dataclasses
+import inspect
 import math
 from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
 
-from ..core.state import ravel
-from .linear import is_operator
+from ..core.state import ravel, tree_axpy
+from .linear import (apply_J, dense_factor, dense_factor_solve,
+                     is_operator)
 
 COMPLEX_DTYPE = torch.complex128
 
@@ -316,3 +325,159 @@ class LOBPCGEig:
             W = W - (W @ X.T) @ X
             W = W / _rownorm(W)[:, None]
         return theta, X, AX
+
+
+def _host_ritz(H: np.ndarray, fnorm: float, which_lm: bool):
+    """Ritz pairs of the (m, m) Hessenberg matrix on the host, sorted by
+    decreasing real part ("LR") or modulus ("LM"), ties by decreasing
+    imaginary part, with their residual estimates |f| |e_m^T y|."""
+    w, y = np.linalg.eig(H)
+    key = np.abs(w) if which_lm else w.real
+    order = np.lexsort((-w.imag, -key))
+    w, y = w[order], y[:, order]
+    resid = np.abs(fnorm) * np.abs(y[-1, :])
+    return (w.astype(np.complex128), y.astype(np.complex128),
+            resid.astype(np.float64))
+
+
+@dataclasses.dataclass(frozen=True)
+class ArnoldiEig:
+    """Matrix-free Arnoldi for the rightmost (or largest-modulus) part of
+    the spectrum.
+
+    A fixed `krylov_dim`-step factorization A V_m = V_m H_m + f e_m^T is
+    built on the device (one matvec and a CGS2 projection per step, no
+    host sync inside it); only the (m x m) Hessenberg eigenproblem crosses
+    to the host.  Ritz residuals |h_{m+1,m}| |e_m^T y| give convergence
+    flags (ARPACK-style: below `tol * max(|theta|, 1)`).  With
+    `restarts > 1`, an unconverged solve restarts from the sum of the
+    wanted Ritz directions.  `v0` warm-starts the process (the previous
+    continuation step's Ritz direction); a zero or missing `v0` takes a
+    random start from a `torch.Generator` seeded with `seed`.
+    """
+
+    krylov_dim: int = 40
+    tol: float = 1e-10
+    restarts: int = 3
+    which: str = "LR"     # LR = largest real part, LM = largest modulus
+    seed: int = 7
+    compute_dtype: Any = None
+
+    def __call__(self, J, nev: int, v0=None):
+        if self.compute_dtype is not None and not is_operator(J):
+            J = J.to(self.compute_dtype)
+        matvec, _, n, dtype, device = _as_flat_matvec(J)
+        m = min(self.krylov_dim, n)
+        tiny = float(torch.finfo(dtype).tiny)
+        which_lm = self.which == "LM"
+        if v0 is not None:
+            v0 = torch.as_tensor(v0).to(dtype=dtype, device=device).reshape(n)
+        if v0 is None or not float(torch.linalg.vector_norm(v0)) > 0:
+            gen = torch.Generator(device=device).manual_seed(self.seed)
+            v0 = torch.randn((n,), generator=gen, dtype=dtype, device=device)
+
+        def factorization(v_start):
+            V = torch.zeros((m + 1, n), dtype=dtype, device=device)
+            H = torch.zeros((m + 1, m), dtype=dtype, device=device)
+            V[0] = v_start / torch.clamp_min(
+                torch.linalg.vector_norm(v_start), tiny)
+            for j in range(m):
+                w = matvec(V[j])
+                # classical Gram-Schmidt with reorthogonalization (CGS2) on
+                # the j+1 filled rows of the basis
+                Vj = V[:j + 1]
+                h1 = Vj @ w
+                w = w - h1 @ Vj
+                h2 = Vj @ w
+                w = w - h2 @ Vj
+                beta = torch.linalg.vector_norm(w)
+                H[:j + 1, j] = h1 + h2
+                H[j + 1, j] = beta
+                # a happy breakdown leaves a zero row, decided on the device
+                V[j + 1] = torch.where(beta > tiny,
+                                       w / torch.clamp_min(beta, tiny), 0.0)
+            Hh = H.cpu().numpy()
+            return V, _host_ritz(Hh[:m, :m], float(Hh[m, m - 1]), which_lm)
+
+        # floor the Ritz tolerance at the working precision (an f32 sweep
+        # cannot reach the f64 default)
+        tol_eff = max(self.tol, 50.0 * float(torch.finfo(dtype).eps))
+
+        def converged(vals, resid):
+            scale = np.maximum(np.abs(vals[:nev]), 1.0)
+            return bool(np.all(resid[:nev] < tol_eff * scale))
+
+        V, (vals, y, resid) = factorization(v0)
+        for _ in range(self.restarts - 1):
+            if converged(vals, resid):
+                break      # a converged solve pays for no other factorization
+            ysum = torch.as_tensor(y[:, :nev].sum(axis=1), device=device)
+            wsum = torch.real(V[:m].T.to(COMPLEX_DTYPE) @ ysum).to(dtype)
+            V, (vals, y, resid) = factorization(
+                wsum / torch.clamp_min(torch.linalg.vector_norm(wsum), tiny))
+        vecs = V[:m].T.to(COMPLEX_DTYPE) @ torch.as_tensor(y[:, :nev],
+                                                           device=device)
+        return (torch.as_tensor(vals[:nev], device=device), vecs,
+                converged(vals, resid), m * self.restarts)
+
+
+def _accepts_v0(solver) -> bool:
+    try:
+        return "v0" in inspect.signature(solver).parameters
+    except (TypeError, ValueError):      # a builtin without a signature
+        return False
+
+
+@dataclasses.dataclass(frozen=True)
+class ShiftInvertEig:
+    """Shift-invert wrapper: eigensolve (J - sigma I)^{-1} and map back,
+    theta -> sigma + 1/theta (ref `ShiftInvert`, src/EigSolver.jl:246-266).
+    Targets the eigenvalues nearest `sigma` — the tool for
+    rightmost-eigenvalue stability queries on PDE jacobians whose spectrum
+    reaches far left.  An operator J needs an iterative `linsolver` (each
+    application of the inverse is one inner solve); a dense J is factored
+    once by LU."""
+
+    sigma: float = 0.0
+    eigsolver: Any = dataclasses.field(
+        default_factory=lambda: ArnoldiEig(which="LM"))
+    linsolver: Any = None   # needed for operators; dense J uses LU
+    compute_dtype: Any = None
+
+    def __call__(self, J, nev: int, v0=None):
+        if self.compute_dtype is not None and not is_operator(J):
+            J = J.to(self.compute_dtype)
+        sigma = self.sigma
+        if is_operator(J):
+            ls = self.linsolver
+            if ls is None:
+                raise ValueError("ShiftInvertEig on an operator needs an "
+                                 "iterative linsolver")
+            _, _, n, dtype, device = _as_flat_matvec(J)
+
+            def raw_op(v):
+                sol, _, _ = ls(lambda w: _shift_op(J, w, sigma), v)
+                return sol
+
+            op = FlatOperator(raw_op, n, dtype, device)
+        else:
+            n = J.shape[0]
+            fac = dense_factor(J - sigma * torch.eye(n, dtype=J.dtype,
+                                                     device=J.device))
+            op = FlatOperator(lambda v: dense_factor_solve(fac, v), n,
+                              J.dtype, J.device)
+        if _accepts_v0(self.eigsolver):
+            vals, vecs, cv, it = self.eigsolver(op, nev, v0=v0)
+        else:
+            vals, vecs, cv, it = self.eigsolver(op, nev)
+        mapped = sigma + 1.0 / vals.cpu().numpy()
+        order = np.lexsort((-mapped.imag, -mapped.real))
+        if vecs is not None:
+            vecs = vecs[:, torch.as_tensor(order, device=vecs.device)]
+        return (torch.as_tensor(mapped[order], device=vals.device), vecs, cv,
+                it)
+
+
+def _shift_op(J, w, sigma):
+    """(J - sigma I) w."""
+    return tree_axpy(-sigma, w, apply_J(J, w))

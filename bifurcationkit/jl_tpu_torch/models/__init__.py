@@ -1,1 +1,3 @@
+from .equilibria import (brusselator_1d, carrier, chan, hopf_normal_2d,
+                         pitchfork_1d, transcritical_1d)
 from .sh import swift_hohenberg_2d

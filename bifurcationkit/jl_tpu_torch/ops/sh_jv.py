@@ -15,72 +15,25 @@ field's device, so a change of the continuation parameter costs no host
 sync and no rebuild.
 
 The kernel is built at first use with `nvcc` into `build/` beside this
-package and bound with ctypes.  A CPU tensor takes the plain version; a
-CUDA tensor launches the kernel or raises.
+package and bound with ctypes (`ops/nvcc.py`).  A CPU tensor takes the
+plain version; a CUDA tensor launches the kernel or raises.
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 
 import torch
 
-_PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "sh_jv.cu"
-BUILD_DIR = _PKG / "build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+from . import nvcc
+
+SOURCE = nvcc.CSRC / "sh_jv.cu"
 _MAX_BATCH = 65535          # gridDim.z limit
-
-_lib = None
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    default = Path("/usr/local/cuda/bin/nvcc")
-    if default.exists():
-        return str(default)
-    raise RuntimeError("nvcc not found: the SH J.v kernel is built with the "
-                       "CUDA toolkit on the machine with the card")
-
-
-def build_library() -> Path:
-    """Compile `csrc/sh_jv.cu` into `build/libsh_jv_<hash>.so` unless that
-    exact source was built already; returns the library path.  The
-    compiler's `-Xptxas -v` report goes to the `.log` beside it."""
-    src = SOURCE.read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    so = BUILD_DIR / f"libsh_jv_{digest[:16]}.so"
-    if so.exists():
-        return so
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                          capture_output=True, text=True)
-    so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {SOURCE}:\n{proc.stderr}")
-    os.replace(tmp, so)      # atomic: a concurrent build sees all or none
-    return so
+_SIGNATURE = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 
 
 def _library():
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build_library()))
-        for name in ("sh_jv_f32", "sh_jv_f64"):
-            fn = getattr(lib, name)
-            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [
-                ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-        _lib = lib
-    return _lib
+    return nvcc.load_library(SOURCE, {"sh_jv_f32": _SIGNATURE,
+                                      "sh_jv_f64": _SIGNATURE})
 
 
 def _check(u: torch.Tensor, v: torch.Tensor, scal: torch.Tensor):

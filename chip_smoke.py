@@ -7,29 +7,42 @@ NVIDIA GPU and check it end to end.
 Phases, one line each (a failing phase raises and the script exits non-zero):
 
 1. device: needs CUDA; prints the card's name and power limit;
-2. build: compiles the SH J.v kernel (`csrc/sh_jv.cu`) with nvcc;
-3. kernel vs plain: the kernel against its plain PyTorch version on the
-   card, f64 and f32, at the flagship shape (K = 1, 2, 60), at 1024x1024
-   and at a ragged 37x23;
-4. main path: the SH2d-fronts flagship at 151x100 — Newton, then PALC
-   through `ContIterable` (2 warm-up + 6 timed steps) and `continuation()`
-   with bifurcation detection — with the kernel's launch count reset just
-   before and read just after — and one profiled step (busy time, idle
-   share, longest kernels);
-5. check: the flagship's last point is a finite root of F, and a 60x40
-   branch on the card matches the same branch on the CPU;
-6. timing: the kernel, its plain version and its bound at the main path's
-   shapes (CUDA events over back-to-back calls, and the card's own time
-   per call from torch.profiler).
+2. build: compiles both kernels, the SH J.v (`csrc/sh_jv.cu`) and the DIA
+   SpMV (`csrc/dia_spmv.cu`), with one nvcc each, started together;
+3. kernel vs plain: each kernel against its plain PyTorch version on the
+   card, f64 and f32 — SH J.v at the flagship shape (K = 1, 2, 60), at
+   1024x1024 and at a ragged 37x23; DIA SpMV at the Brusselator path's
+   shape (n = 256, offsets -128, -1, 0, 1, 128; K = 1 and 8), at a ragged
+   n, with offsets +-5000 on n = 20,000, and with 5 diagonals on 2^20 rows;
+4. main paths, each with every kernel's launch count reset just before it
+   and read just after:
+   a. the SH2d-fronts flagship at 151x100 — Newton, then PALC through
+      `ContIterable` (2 warm-up + 6 timed steps) and `continuation()` with
+      bifurcation detection — and one profiled step (busy time, idle
+      share, longest kernels);
+   b. the Brusselator at 128 sites (256 unknowns) with its jacobian as a
+      five-diagonal `DIAMatrix` — Newton from a perturbed guess, then PALC
+      with GMRES and shift-invert Arnoldi sweeps that detect and bisect
+      the Hopf point, with `p_max` cut just past it — and one profiled
+      step;
+5. check: the flagship's last point is a finite root of F, a 60x40 SH
+   branch and a 32-site Brusselator branch on the card match the same
+   branches on the CPU;
+6. timing: each kernel, its plain version and its bound at the main
+   paths' shapes (CUDA events over back-to-back calls, and the card's own
+   time per call from torch.profiler); for DIA SpMV also one cuSPARSE CSR
+   matrix-vector product through PyTorch, timed as a yardstick only.
 
 Then the nvidia-smi line, one JSON line listing the kernels, and the final
 JSON line.  Full details go to chiprun_out/chip_smoke.json.
 """
+import importlib
 import json
 import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
@@ -42,10 +55,14 @@ from bifurcationkit.jl_tpu_torch import interop, models  # noqa: E402
 from bifurcationkit.jl_tpu_torch.continuation.engine import (  # noqa: E402
     ContIterable)
 from bifurcationkit.jl_tpu_torch.core.state import BorderedState  # noqa: E402
+from bifurcationkit.jl_tpu_torch.ops import DIAMatrix, nvcc  # noqa: E402
 from bifurcationkit.jl_tpu_torch.ops import sh_jv as sh_jv_mod  # noqa: E402
 
+# the module, not the function of the same name that `ops` exports
+dia_mod = importlib.import_module("bifurcationkit.jl_tpu_torch.ops.dia_spmv")
+
 # NVIDIA H100 SXM data sheet: HBM3 3.35 TB/s; FP64 34 TFLOP/s and FP32
-# 67 TFLOP/s outside the tensor cores (the J.v stencil uses none)
+# 67 TFLOP/s outside the tensor cores (neither kernel uses them)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float64: 34e12, torch.float32: 67e12}
 TOL = {torch.float64: 1e-12, torch.float32: 1e-5}
@@ -86,14 +103,25 @@ def check_device():
 
 
 def build():
+    """One nvcc per kernel source, started together."""
     t0 = time.perf_counter()
-    so = sh_jv_mod.build_library()
-    sh_jv_mod._library()
-    log = so.with_suffix(".log")
-    ptxas = [ln.strip() for ln in log.read_text().splitlines()
-             if "registers" in ln or "spill" in ln] if log.exists() else []
-    phase("build", seconds=round(time.perf_counter() - t0, 3),
-          library=os.path.relpath(so, ROOT), ptxas=repr(ptxas))
+    mods = (sh_jv_mod, dia_mod)
+    with ThreadPoolExecutor(len(mods)) as pool:
+        libs = list(pool.map(lambda m: nvcc.build_library(m.SOURCE), mods))
+    for m in mods:
+        m._library()
+    for so in libs:
+        log = so.with_suffix(".log")
+        ptxas = [ln.strip() for ln in log.read_text().splitlines()
+                 if "registers" in ln or "spill" in ln] \
+            if log.exists() else []
+        phase("build", seconds=round(time.perf_counter() - t0, 3),
+              library=os.path.relpath(so, ROOT), ptxas=repr(ptxas))
+
+
+def reset_launches():
+    sh_jv_mod.sh_jv.launches = 0
+    dia_mod.dia_spmv.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -135,6 +163,48 @@ def compare_kernel():
     return worst_main
 
 
+# (n, offsets, K): the Brusselator path's shape at K = 1 and 8, a ragged n,
+# offsets far beyond any tile, and 5 diagonals on 2^20 rows
+BRUSS_SITES = 128
+PATH_OFFSETS = (-BRUSS_SITES, -1, 0, 1, BRUSS_SITES)
+DIA_CASES = [(2 * BRUSS_SITES, PATH_OFFSETS, 1),
+             (2 * BRUSS_SITES, PATH_OFFSETS, 8),
+             (1000, (-37, -1, 0, 2, 999), 3),
+             (20000, (-5000, -1, 0, 1, 5000), 1),
+             (1 << 20, (-1024, -1, 0, 1, 1024), 1)]
+
+
+def _dia_inputs(n, offsets, K, dtype, seed):
+    """Random data, its out-of-band entries included, and K vectors."""
+    rng = np.random.default_rng(seed)
+    dev = torch.device("cuda")
+    data = torch.as_tensor(rng.standard_normal((len(offsets), n)),
+                           dtype=dtype, device=dev)
+    v = torch.as_tensor(rng.standard_normal((K, n)), dtype=dtype, device=dev)
+    return DIAMatrix(data, offsets), (v if K > 1 else v[0])
+
+
+def compare_dia():
+    worst_path = 0.0
+    for dtype in (torch.float64, torch.float32):
+        for i, (n, offsets, K) in enumerate(DIA_CASES):
+            A, v = _dia_inputs(n, offsets, K, dtype, seed=10 + i)
+            out = dia_mod.dia_spmv(A, v)
+            torch.cuda.synchronize()
+            ref = dia_mod.dia_spmv_plain(A, v)
+            abs_err = float((out - ref).abs().max())
+            rel = abs_err / float(ref.abs().max())
+            phase("compare_dia", dtype=str(dtype).split(".")[-1], n=n,
+                  offsets=list(offsets), K=K, max_abs_err=abs_err,
+                  max_rel_err=rel, tol=TOL[dtype])
+            if not (rel < TOL[dtype]):
+                raise AssertionError(f"dia_spmv disagrees with its plain "
+                                     f"version: {rel} >= {TOL[dtype]}")
+            if n == 2 * BRUSS_SITES:
+                worst_path = max(worst_path, abs_err)
+    return worst_path
+
+
 # ---------------------------------------------------------------------------
 # 4. the main path
 # ---------------------------------------------------------------------------
@@ -159,7 +229,7 @@ def flagship_config(prob, max_steps):
 
 
 def main_path(card, warmup=2, timed=6, detect_steps=6):
-    sh_jv_mod.sh_jv.launches = 0
+    reset_launches()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     prob = models.swift_hohenberg_2d(Nx=151, Ny=100)      # on the card
@@ -300,6 +370,136 @@ def breakdown(it, state, timed_steps):
 
 
 # ---------------------------------------------------------------------------
+# 4b. the Brusselator path: a DIA jacobian, shift-invert Arnoldi, Hopf
+# ---------------------------------------------------------------------------
+
+BRUSS_P_MAX = 0.55        # depth cut: the branch stops just past its Hopf
+
+
+def brusselator_dia_jac_op(n):
+    """User code: the Brusselator jacobian as a five-diagonal `DIAMatrix`
+    (offsets -n, -1, 0, 1, n on the stacked (u, v) state), built on the
+    state's device."""
+    h = 1.0 / n
+
+    def jac_op(uv, par):
+        a, b, l = par["alpha"], par["beta"], par["l"]
+        c1 = par["D1"] / (l ** 2 * h ** 2)
+        c2 = par["D2"] / (l ** 2 * h ** 2)
+        u, v = uv[:n], uv[n:]
+        zero = torch.zeros_like(u)
+        # rows whose neighbour lies in the other block couple to nothing
+        idx = torch.arange(n, device=uv.device)
+        first = (idx != 0).to(uv.dtype)
+        last = (idx != n - 1).to(uv.dtype)
+        data = torch.stack([
+            torch.cat([zero, b - 2 * u * v]),                  # -n
+            torch.cat([c1 * first, c2 * first]),               # -1
+            torch.cat([-2 * c1 - (b + 1) + 2 * u * v, -2 * c2 - u * u]),
+            torch.cat([c1 * last, c2 * last]),                 # +1
+            torch.cat([u * u, zero]),                          # +n
+        ])
+        return DIAMatrix(data, (-n, -1, 0, 1, n))
+
+    return jac_op
+
+
+def brusselator_problem(n, device=None):
+    prob = models.brusselator_1d(n=n, device=device)
+    return prob.re_make(jac_op=brusselator_dia_jac_op(n))
+
+
+def brusselator_config(n, max_steps=60):
+    """The `ContinuationPar` of examples/brusselator.py:14-17 with a
+    matrix-free GMRES and shift-invert Arnoldi; `p_max` cut to
+    BRUSS_P_MAX."""
+    ls = bk.GMRES(restart=2 * n, maxiter=4 * n, rtol=1e-11)
+    eig = bk.ShiftInvertEig(
+        sigma=0.0,
+        eigsolver=bk.ArnoldiEig(which="LM", krylov_dim=30, restarts=3,
+                                tol=1e-9),
+        linsolver=bk.GMRES(restart=2 * n, maxiter=4 * n, rtol=1e-10))
+    return bk.ContinuationPar(
+        ds=0.01, dsmax=0.02, dsmin=1e-6, p_min=0.29, p_max=BRUSS_P_MAX,
+        max_steps=max_steps, detect_bifurcation=3, nev=8, n_inversion=4,
+        newton_options=bk.NewtonPar(tol=1e-9, linsolver=ls, eigsolver=eig))
+
+
+def brusselator_path(card):
+    n = BRUSS_SITES
+    reset_launches()
+    t0 = time.perf_counter()
+    prob = brusselator_problem(n)                  # on the card
+    cp = brusselator_config(n)
+    rng = np.random.default_rng(0)
+    guess = prob.u0 * torch.as_tensor(1 + 0.05 * rng.standard_normal(2 * n),
+                                      device=prob.u0.device)
+    sol = bk.newton(prob, cp.newton_options, x0=guess)
+    torch.cuda.synchronize()
+    if not sol.converged:
+        raise AssertionError("Newton did not converge on the Brusselator")
+    phase("bruss_newton", iterations=sol.itnewton, linear=sol.itlineartot,
+          residual=float(sol.residuals[sol.itnewton]),
+          seconds=round(time.perf_counter() - t0, 3))
+
+    t1 = time.perf_counter()
+    br = bk.continuation(prob.re_make(u0=sol.u), bk.PALC(), cp)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t1
+    launches = dia_mod.dia_spmv.launches
+    for i in range(len(br)):
+        phase("bruss_step", step=int(br["step"][i]), p=float(br.param[i]),
+              n_unstable=int(br.n_unstable[i]),
+              itnewton=int(br["itnewton"][i]),
+              itlinear=int(br["itlinear"][i]))
+    hopf = br.get_special_points("hopf")
+    phase("bruss_continuation", steps=len(br) - 1,
+          special=[(sp.type, sp.param, sp.status) for sp in br.specialpoint],
+          seconds=seconds, total_seconds=time.perf_counter() - t0,
+          dia_spmv_launches=launches,
+          sh_jv_launches=sh_jv_mod.sh_jv.launches, card=repr(card))
+    if not hopf or hopf[0].status != "converged":
+        raise AssertionError("the Brusselator branch did not detect and "
+                             "bisect a Hopf point")
+    if launches <= 0:
+        raise AssertionError("the Brusselator path never launched the "
+                             "dia_spmv kernel")
+    bruss_breakdown(prob.re_make(u0=sol.u), cp)
+    return launches, seconds
+
+
+def bruss_breakdown(prob, cp, unprofiled=2):
+    """One profiled Brusselator step after `unprofiled` timed ones: the
+    card's busy time, its launches by kernel, and the idle share against
+    the median unprofiled step (and against the profiled step's own wall
+    time, which the profiler inflates)."""
+    it = ContIterable(prob, bk.PALC(), cp)
+    state = it.init_state()
+    times = []
+    for _ in range(unprofiled):
+        t = time.perf_counter()
+        it.iterate(state)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    rows, wall = _profile(lambda: it.iterate(state))
+    if not state.converged:
+        raise AssertionError("the profiled Brusselator step did not converge")
+    busy = sum(r[1] for r in rows) * 1e-6
+    dia = [r for r in rows if "dia_spmv_kernel" in r[0]]
+    step_s = float(np.median(times))
+    phase("bruss_breakdown", unprofiled_step_s=times, profiled_step_s=wall,
+          p=state.p, device_busy_s=busy if rows else "not measured",
+          idle_share=(1 - busy / step_s) if rows else "not measured",
+          idle_share_of_profiled_wall=(1 - busy / wall) if rows
+          else "not measured",
+          launches=sum(r[2] for r in rows), kernels=len(rows),
+          dia_spmv_calls=sum(r[2] for r in dia),
+          dia_spmv_device_s=sum(r[1] for r in dia) * 1e-6,
+          top_kernels_ms=[(n[:70], round(us / 1e3, 3), c)
+                          for n, us, c in rows[:8]])
+
+
+# ---------------------------------------------------------------------------
 # 5. checks on what came out
 # ---------------------------------------------------------------------------
 
@@ -332,6 +532,32 @@ def check_outputs(prob, state):
           special=[str(t) for t in rows["cuda"]["sp_type"]])
     if not (dp < 1e-8 and same_n and same_sp):
         raise AssertionError("60x40 branch on the card disagrees with the CPU")
+
+
+def check_bruss_small(n=32):
+    """The same Brusselator branch at 32 sites on the card (kernel) and on
+    the CPU (plain version) agrees."""
+    rows = {}
+    threads = torch.get_num_threads()
+    for dev in ("cuda", "cpu"):
+        torch.set_num_threads(1)          # small tensors: threads contend
+        rows[dev] = interop.branch_to_numpy(bk.continuation(
+            brusselator_problem(n, dev), bk.PALC(), brusselator_config(n)))
+        torch.set_num_threads(threads)
+    same_len = len(rows["cuda"]["p"]) == len(rows["cpu"]["p"])
+    dp = float(np.abs(rows["cuda"]["p"] - rows["cpu"]["p"]).max()) \
+        if same_len else float("inf")
+    same_n = same_len and bool(np.array_equal(rows["cuda"]["n_unstable"],
+                                              rows["cpu"]["n_unstable"]))
+    same_sp = list(rows["cuda"]["sp_type"]) == list(rows["cpu"]["sp_type"])
+    phase("check_bruss_branch", sites=n, max_abs_dp=dp,
+          same_n_unstable=same_n, same_special_types=same_sp,
+          special=[(str(t), float(p)) for t, p in
+                   zip(rows["cuda"]["sp_type"], rows["cuda"]["sp_p"])])
+    if not (dp < 1e-8 and same_n and same_sp
+            and "hopf" in list(rows["cuda"]["sp_type"])):
+        raise AssertionError("32-site Brusselator branch on the card "
+                             "disagrees with the CPU")
 
 
 # ---------------------------------------------------------------------------
@@ -397,19 +623,97 @@ def time_kernel():
     return cases
 
 
+def _csr_of(A):
+    """The same matrix as a PyTorch sparse CSR tensor (in-band entries
+    only), for the cuSPARSE yardstick."""
+    n = A.data.shape[1]
+    i = torch.arange(n, device=A.data.device)
+    rows, cols, vals = [], [], []
+    for k, off in enumerate(A.offsets):
+        j = i + off
+        m = (j >= 0) & (j < n)
+        rows.append(i[m])
+        cols.append(j[m])
+        vals.append(A.data[k][m])
+    coo = torch.sparse_coo_tensor(
+        torch.stack([torch.cat(rows), torch.cat(cols)]), torch.cat(vals),
+        (n, n))
+    return coo.coalesce().to_sparse_csr()
+
+
+def time_dia():
+    cases = []
+    for n, offsets in ((2 * BRUSS_SITES, PATH_OFFSETS),
+                       (1 << 20, (-1024, -1, 0, 1, 1024))):
+        for dtype in (torch.float32, torch.float64):
+            A, v = _dia_inputs(n, offsets, 1, dtype, seed=7)
+            csr = _csr_of(A)
+            reps = 2000 if n < 4096 else 300
+
+            def kern():
+                return dia_mod.dia_spmv(A, v)
+
+            def plain():
+                return dia_mod.dia_spmv_plain(A, v)
+
+            def library():
+                return csr @ v
+
+            ref = plain()
+            lib_rel = float((library() - ref).abs().max() / ref.abs().max())
+            # in turns: kernel, plain, library, then again
+            tk1, tp1, tl1 = _time(kern, reps), _time(plain, reps), \
+                _time(library, reps)
+            tk2, tp2, tl2 = _time(kern, reps), _time(plain, reps), \
+                _time(library, reps)
+            krows, _ = _profile(lambda: [kern() for _ in range(100)])
+            prows, _ = _profile(lambda: [plain() for _ in range(100)])
+            lrows, _ = _profile(lambda: [library() for _ in range(100)])
+            kdev = [r for r in krows if "dia_spmv_kernel" in r[0]]
+            nbytes = dia_mod.dia_spmv_bytes(n, offsets, 1, v.element_size())
+            flops = dia_mod.dia_spmv_flops(n, offsets, 1)
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+            case = dict(dtype=str(dtype).split(".")[-1], n=n,
+                        offsets=list(offsets), K=1, ms=(tk1 + tk2) / 2,
+                        plain_ms=(tp1 + tp2) / 2,
+                        library_ms=(tl1 + tl2) / 2,
+                        library="cuSPARSE CSR SpMV (torch sparse_csr @ v)",
+                        library_max_rel_err=lib_rel,
+                        bound_ms=max(t_bytes, t_ops),
+                        bound_by="bytes" if t_bytes >= t_ops else "operations",
+                        device_ms=(sum(r[1] for r in kdev) / 1e3
+                                   / sum(r[2] for r in kdev))
+                        if kdev else "not measured",
+                        plain_device_ms=sum(r[1] for r in prows) / 1e5
+                        if prows else "not measured",
+                        library_device_ms=sum(r[1] for r in lrows) / 1e5
+                        if lrows else "not measured")
+            cases.append(case)
+            phase("timing_dia", **case)
+    return cases
+
+
 def main():
     card = check_device()
     build()
     max_abs_err = compare_kernel()
+    dia_abs_err = compare_dia()
     prob, state, launches, steps_per_s = main_path(card)
+    dia_launches, bruss_seconds = brusselator_path(card)
     check_outputs(prob, state)
+    check_bruss_small()
     cases = time_kernel()
+    dia_cases = time_dia()
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
 
     head = next(c for c in cases
                 if c["shape"] == "151x100" and c["K"] == 1
                 and c["dtype"] == "float32")
+    # the Brusselator path runs in f64 at 256 unknowns
+    dhead = next(c for c in dia_cases
+                 if c["n"] == 2 * BRUSS_SITES and c["dtype"] == "float64")
     kernels = [{
         "name": "sh_jv", "route": "cuda",
         "source": "bifurcationkit/jl_tpu_torch/csrc/sh_jv.cu",
@@ -419,9 +723,19 @@ def main():
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
         "library_ms": None,       # no single PyTorch call computes SH J.v
         "cases": cases,
+    }, {
+        "name": "dia_spmv", "route": "cuda",
+        "source": "bifurcationkit/jl_tpu_torch/csrc/dia_spmv.cu",
+        "replaces": "bifurcationkit/jl_tpu/ops/pallas_spmv.py:75",
+        "launches": dia_launches, "max_abs_err": dia_abs_err,
+        "ms": dhead["ms"], "plain_ms": dhead["plain_ms"],
+        "bound_ms": dhead["bound_ms"], "bound_by": dhead["bound_by"],
+        "library_ms": dhead["library_ms"],
+        "cases": dia_cases,
     }]
     DETAILS["kernels"] = kernels
     DETAILS["steps_per_s"] = steps_per_s
+    DETAILS["brusselator_seconds"] = bruss_seconds
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(DETAILS, f, indent=1, default=str)

@@ -140,3 +140,57 @@ def test_dense_eig():
     np.testing.assert_allclose(wt.numpy(), np.asarray(wj), rtol=1e-12)
     with pytest.raises(TypeError):
         bt.DenseEig()(lambda v: v, 2)
+
+
+def test_failed_corrector_eigensolves_the_accepted_point():
+    """A PALC step whose corrector fails returns the old point and tangent,
+    and — as the JAX package's fused step does — the eigenvalues of that
+    point and a seed refreshed from its Ritz directions.  Arnoldi on the
+    full space (krylov_dim = N) from the same numpy v0 in both packages:
+    eigenvalues to 1e-10 relative, the seed to 1e-8 relative (a sum of
+    unit Ritz vectors from the same Hessenberg matrix)."""
+    from bifurcationkit.jl_tpu.continuation.kernels import (
+        make_kernels as j_make_kernels)
+    from bifurcationkit.jl_tpu.core.state import BorderedState as JBS
+    from bifurcationkit.jl_tpu_torch.continuation.kernels import (
+        make_kernels as t_make_kernels)
+
+    pj, pt = _problems()
+    rng = np.random.default_rng(8)
+    u = 0.3 * np.sin(np.pi * np.arange(1, N + 1) / (N + 1))
+    v0 = rng.standard_normal(N)
+
+    def cp(pkg):
+        # one Newton iteration cannot reach 1e-13 from a far predictor
+        return pkg.ContinuationPar(
+            ds=0.5, dsmax=1.0, p_min=0.0, p_max=3.6, nev=4,
+            newton_options=pkg.NewtonPar(
+                tol=1e-13, max_iterations=1,
+                eigsolver=pkg.ArnoldiEig(krylov_dim=N, restarts=1)))
+
+    kj = j_make_kernels(pj, bj.PALC(), cp(bj))
+    zj = JBS(u=jnp.asarray(u), p=jnp.asarray(0.5))
+    tj = JBS(u=jnp.zeros(N), p=jnp.asarray(1.0))
+    (zaj, taj, cvj, _, _, _, wj, _, _, seed_j) = kj.palc_full_step(
+        zj, tj, 0.5, pj.params, jnp.asarray(v0))
+
+    kt = t_make_kernels(pt, bt.PALC(), cp(bt))
+    ut, part = interop.state_from_numpy(u, {"lam": 0.5}, "cpu")
+    zt = bt.BorderedState(u=ut, p=part["lam"])
+    tt = bt.BorderedState(u=torch.zeros(N, dtype=torch.float64),
+                          p=torch.tensor(1.0, dtype=torch.float64))
+    (zat, tat, cvt, _, _, _, wt, _, _, seed_t) = kt.palc_step(
+        zt, tt, 0.5, part, eig_seed=torch.as_tensor(v0))
+
+    assert not cvt and not bool(cvj)
+    assert zat is zt and tat is tt
+    np.testing.assert_array_equal(np.asarray(zaj.u), u)
+    assert wt is not None, "no eigensolve after the failed corrector"
+    assert np.abs(wt - np.asarray(wj)).max() < 1e-10 * np.abs(wj).max()
+    # the eigenvalues are those of the accepted (old) point
+    J = jax.jacfwd(lambda x: pj.F(x, {"lam": 0.5}))(jnp.asarray(u))
+    lam = np.sort(np.linalg.eigvals(np.asarray(J)).real)[::-1][:4]
+    assert np.abs(wt.real - lam).max() < 1e-10 * np.abs(lam).max()
+    seed_j, seed_t = np.asarray(seed_j), seed_t.numpy()
+    assert np.abs(seed_t - seed_j).max() < 1e-8 * np.abs(seed_j).max()
+    assert np.abs(seed_t - v0).max() > 1e-3      # refreshed, not passed on
