@@ -2,13 +2,13 @@
 in `csrc/`, compiled with `nvcc` for `sm_90a` at first use into `build/`
 beside the package, and loaded with ctypes.
 
-A library is keyed by its source and its flags: `build/lib<stem>_<hash>.so`
+A library is keyed by its source and `NVCC_FLAGS`: `build/lib<stem>_<hash>.so`
 is rebuilt only when either changes, and the compiler's `-Xptxas -v`
 report goes to the `.log` beside it.  Each source exports a plain C
 interface whose functions launch on the given stream and return
 `cudaGetLastError()` (0 = success), so every bound function returns
-`int`.  Builds of different sources may run at the same time (one
-`nvcc` process each).
+`int`.  `build_libraries` starts one `nvcc` process per source that needs
+building, all at once, and waits for them.
 """
 from __future__ import annotations
 
@@ -17,9 +17,8 @@ import hashlib
 import os
 import shutil
 import subprocess
-import threading
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Dict, List, Sequence
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -28,7 +27,6 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _loaded: Dict[Path, ctypes.CDLL] = {}
-_lock = threading.Lock()
 
 
 def nvcc() -> str:
@@ -42,37 +40,50 @@ def nvcc() -> str:
                        "the CUDA toolkit on the machine with the card")
 
 
-def build_library(source: Path, flags: Sequence[str] = NVCC_FLAGS) -> Path:
-    """Compile `source` into `build/lib<stem>_<hash>.so` unless that exact
-    source was built with these flags already; returns the library path."""
-    source = Path(source)
-    digest = hashlib.sha256(source.read_bytes()
-                            + " ".join(flags).encode()).hexdigest()
-    so = BUILD_DIR / f"lib{source.stem}_{digest[:16]}.so"
-    if so.exists():
-        return so
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{so.name}.{os.getpid()}.{threading.get_ident()}.tmp")
-    proc = subprocess.run([nvcc(), *flags, "-o", str(tmp), str(source)],
-                          capture_output=True, text=True)
-    so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {source}:\n{proc.stderr}")
-    os.replace(tmp, so)      # atomic: a concurrent build sees all or none
-    return so
+def _digest(source: Path) -> str:
+    return hashlib.sha256(source.read_bytes()
+                          + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+
+
+def build_libraries(sources: Sequence[Path]) -> List[Path]:
+    """Compile each source whose library is not built yet, one `nvcc`
+    process each, all started together; returns the library paths."""
+    sources = [Path(s) for s in sources]
+    libs = [BUILD_DIR / f"lib{s.stem}_{_digest(s)}.so" for s in sources]
+    jobs = []
+    for source, so in zip(sources, libs):
+        if so.exists():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+        proc = subprocess.Popen([nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                                 str(source)], stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+        jobs.append((source, so, tmp, proc))
+    failed = []
+    for source, so, tmp, proc in jobs:
+        out, err = proc.communicate()
+        so.with_suffix(".log").write_text(out + err)
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed on {source}:\n{err}")
+        else:
+            os.replace(tmp, so)    # atomic: another process sees all or none
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return libs
 
 
 def load_library(source: Path, functions: Dict[str, Sequence]) -> ctypes.CDLL:
-    """The built library of `source`, loaded once per process, with each
-    entry of `functions` (name -> ctypes argtypes) bound to return int."""
+    """The library of `source`, built unless it is already and loaded once
+    per process, with each entry of `functions` (name -> ctypes argtypes)
+    bound to return int."""
     source = Path(source)
-    with _lock:
-        lib = _loaded.get(source)
-        if lib is None:
-            lib = ctypes.CDLL(str(build_library(source)))
-            for name, argtypes in functions.items():
-                fn = getattr(lib, name)
-                fn.argtypes = list(argtypes)
-                fn.restype = ctypes.c_int
-            _loaded[source] = lib
+    lib = _loaded.get(source)
+    if lib is None:
+        lib = ctypes.CDLL(str(build_libraries([source])[0]))
+        for name, argtypes in functions.items():
+            fn = getattr(lib, name)
+            fn.argtypes = list(argtypes)
+            fn.restype = ctypes.c_int
+        _loaded[source] = lib
     return lib

@@ -8,7 +8,7 @@ Phases, one line each (a failing phase raises and the script exits non-zero):
 
 1. device: needs CUDA; prints the card's name and power limit;
 2. build: compiles both kernels, the SH J.v (`csrc/sh_jv.cu`) and the DIA
-   SpMV (`csrc/dia_spmv.cu`), with one nvcc each, started together;
+   SpMV (`csrc/dia_spmv.cu`), one nvcc process each, started together;
 3. kernel vs plain: each kernel against its plain PyTorch version on the
    card, f64 and f32 — SH J.v at the flagship shape (K = 1, 2, 60), at
    1024x1024 and at a ragged 37x23; DIA SpMV at the Brusselator path's
@@ -36,13 +36,11 @@ Phases, one line each (a failing phase raises and the script exits non-zero):
 Then the nvidia-smi line, one JSON line listing the kernels, and the final
 JSON line.  Full details go to chiprun_out/chip_smoke.json.
 """
-import importlib
 import json
 import os
 import subprocess
 import sys
 import time
-from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
@@ -55,11 +53,11 @@ from bifurcationkit.jl_tpu_torch import interop, models  # noqa: E402
 from bifurcationkit.jl_tpu_torch.continuation.engine import (  # noqa: E402
     ContIterable)
 from bifurcationkit.jl_tpu_torch.core.state import BorderedState  # noqa: E402
-from bifurcationkit.jl_tpu_torch.ops import DIAMatrix, nvcc  # noqa: E402
+from bifurcationkit.jl_tpu_torch.ops import (  # noqa: E402
+    DIAMatrix, dia_spmv, nvcc)
 from bifurcationkit.jl_tpu_torch.ops import sh_jv as sh_jv_mod  # noqa: E402
-
-# the module, not the function of the same name that `ops` exports
-dia_mod = importlib.import_module("bifurcationkit.jl_tpu_torch.ops.dia_spmv")
+from bifurcationkit.jl_tpu_torch.ops.dia_spmv import (  # noqa: E402
+    SOURCE as DIA_SOURCE, dia_spmv_bytes, dia_spmv_flops, dia_spmv_plain)
 
 # NVIDIA H100 SXM data sheet: HBM3 3.35 TB/s; FP64 34 TFLOP/s and FP32
 # 67 TFLOP/s outside the tensor cores (neither kernel uses them)
@@ -103,13 +101,9 @@ def check_device():
 
 
 def build():
-    """One nvcc per kernel source, started together."""
+    """One nvcc process per kernel source, started together."""
     t0 = time.perf_counter()
-    mods = (sh_jv_mod, dia_mod)
-    with ThreadPoolExecutor(len(mods)) as pool:
-        libs = list(pool.map(lambda m: nvcc.build_library(m.SOURCE), mods))
-    for m in mods:
-        m._library()
+    libs = nvcc.build_libraries([sh_jv_mod.SOURCE, DIA_SOURCE])
     for so in libs:
         log = so.with_suffix(".log")
         ptxas = [ln.strip() for ln in log.read_text().splitlines()
@@ -121,7 +115,7 @@ def build():
 
 def reset_launches():
     sh_jv_mod.sh_jv.launches = 0
-    dia_mod.dia_spmv.launches = 0
+    dia_spmv.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -189,9 +183,9 @@ def compare_dia():
     for dtype in (torch.float64, torch.float32):
         for i, (n, offsets, K) in enumerate(DIA_CASES):
             A, v = _dia_inputs(n, offsets, K, dtype, seed=10 + i)
-            out = dia_mod.dia_spmv(A, v)
+            out = dia_spmv(A, v)
             torch.cuda.synchronize()
-            ref = dia_mod.dia_spmv_plain(A, v)
+            ref = dia_spmv_plain(A, v)
             abs_err = float((out - ref).abs().max())
             rel = abs_err / float(ref.abs().max())
             phase("compare_dia", dtype=str(dtype).split(".")[-1], n=n,
@@ -318,15 +312,39 @@ def _profile(fn):
     return _kernel_rows(prof), wall
 
 
+def _profiled_step(it, state, kernel, step_times):
+    """One PALC step under torch.profiler after unprofiled steps that took
+    `step_times` seconds: the card's busy time, its launches in all and of
+    `kernel`, and the longest kernels.  The profiler's own host work slows
+    the step it traces, so `idle_share` divides the busy time by the median
+    unprofiled step; the share against the profiled step's own wall time is
+    printed beside it, labelled as such.  Returns the fields and the busy
+    seconds."""
+    rows, wall = _profile(lambda: it.iterate(state))
+    if not state.converged:
+        raise AssertionError("the profiled PALC step did not converge")
+    busy = sum(r[1] for r in rows) * 1e-6
+    mine = [r for r in rows if f"{kernel}_kernel" in r[0]]
+    step_s = float(np.median(step_times))
+    missing = "not measured"
+    return dict(
+        median_unprofiled_step_s=step_s, profiled_step_s=wall, p=state.p,
+        device_busy_s=busy if rows else missing,
+        idle_share=(1 - busy / step_s) if rows else missing,
+        idle_share_of_profiled_wall=(1 - busy / wall) if rows else missing,
+        kernels=len(rows), launches=sum(r[2] for r in rows),
+        **{f"{kernel}_calls": sum(r[2] for r in mine),
+           f"{kernel}_device_s": sum(r[1] for r in mine) * 1e-6},
+        top_kernels_ms=[(n[:70], round(us / 1e3, 3), c)
+                        for n, us, c in rows[:8]]), busy if rows else None
+
+
 def breakdown(it, state, timed_steps):
     """Where one warm flagship step goes: corrector against eigensolve on
-    the host clock, then one profiled step — the card's busy time and the
-    longest kernels.  The profiler's own host work slows the step it
-    traces, so `idle_share` divides that busy time by the median wall
-    time of the unprofiled timed steps, and `idle_share_per_iteration`
-    scales it to the timed steps' inner iteration counts first.  The
-    share against the profiled step's own wall time is printed beside
-    them, labelled as such."""
+    the host clock, then one profiled step (`_profiled_step`).  The
+    profiled step may take more inner iterations than a timed one, so
+    `idle_share_per_iteration` scales its busy time to the timed steps'
+    inner iteration counts first."""
     kn, par = it.kernels, it._params()
     z, tau, ds = state.z, state.tau, state.ds
     z_pred = BorderedState(u=z.u + ds * tau.u, p=z.p + ds * tau.p)
@@ -340,33 +358,17 @@ def breakdown(it, state, timed_steps):
     torch.cuda.synchronize()
     t_eig = time.perf_counter() - t
 
-    rows, wall = _profile(lambda: it.iterate(state))
-    if not state.converged:
-        raise AssertionError("the profiled PALC step did not converge")
-    busy = sum(r[1] for r in rows) * 1e-6
-    sh = [r for r in rows if "sh_jv_kernel" in r[0]]
-    step_s = float(np.median([s["seconds"] for s in timed_steps]))
-    # the profiled step may take more inner iterations than a timed one:
-    # scale its busy time per inner iteration to the timed steps' counts
-    busy_per_it = busy / max(state.itlinear, 1)
-    timed_busy = busy_per_it * sum(s["itlinear"] for s in timed_steps)
+    fields, busy = _profiled_step(
+        it, state, "sh_jv", [s["seconds"] for s in timed_steps])
     timed_wall = sum(s["seconds"] for s in timed_steps)
+    timed_busy = None if busy is None else busy / max(state.itlinear, 1) \
+        * sum(s["itlinear"] for s in timed_steps)
     phase("breakdown", corrector_s=t_corr, eig_s=t_eig,
-          median_timed_step_s=step_s, profiled_step_s=wall,
           profiled_itlinear=state.itlinear,
           median_timed_itlinear=float(np.median(
               [s["itlinear"] for s in timed_steps])),
-          device_busy_s=busy if rows else "not measured",
-          idle_share=(1 - busy / step_s) if rows else "not measured",
-          idle_share_per_iteration=(1 - timed_busy / timed_wall) if rows
-          else "not measured",
-          idle_share_of_profiled_wall=(1 - busy / wall) if rows
-          else "not measured",
-          sh_jv_device_s=sum(r[1] for r in sh) * 1e-6,
-          sh_jv_calls=sum(r[2] for r in sh), kernels=len(rows),
-          launches=sum(r[2] for r in rows),
-          top_kernels_ms=[(n[:70], round(us / 1e3, 3), c)
-                          for n, us, c in rows[:8]])
+          idle_share_per_iteration=(1 - timed_busy / timed_wall)
+          if busy is not None else "not measured", **fields)
 
 
 # ---------------------------------------------------------------------------
@@ -446,7 +448,7 @@ def brusselator_path(card):
     br = bk.continuation(prob.re_make(u0=sol.u), bk.PALC(), cp)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t1
-    launches = dia_mod.dia_spmv.launches
+    launches = dia_spmv.launches
     for i in range(len(br)):
         phase("bruss_step", step=int(br["step"][i]), p=float(br.param[i]),
               n_unstable=int(br.n_unstable[i]),
@@ -469,10 +471,8 @@ def brusselator_path(card):
 
 
 def bruss_breakdown(prob, cp, unprofiled=2):
-    """One profiled Brusselator step after `unprofiled` timed ones: the
-    card's busy time, its launches by kernel, and the idle share against
-    the median unprofiled step (and against the profiled step's own wall
-    time, which the profiler inflates)."""
+    """One profiled Brusselator step (`_profiled_step`) after `unprofiled`
+    timed ones."""
     it = ContIterable(prob, bk.PALC(), cp)
     state = it.init_state()
     times = []
@@ -481,22 +481,8 @@ def bruss_breakdown(prob, cp, unprofiled=2):
         it.iterate(state)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t)
-    rows, wall = _profile(lambda: it.iterate(state))
-    if not state.converged:
-        raise AssertionError("the profiled Brusselator step did not converge")
-    busy = sum(r[1] for r in rows) * 1e-6
-    dia = [r for r in rows if "dia_spmv_kernel" in r[0]]
-    step_s = float(np.median(times))
-    phase("bruss_breakdown", unprofiled_step_s=times, profiled_step_s=wall,
-          p=state.p, device_busy_s=busy if rows else "not measured",
-          idle_share=(1 - busy / step_s) if rows else "not measured",
-          idle_share_of_profiled_wall=(1 - busy / wall) if rows
-          else "not measured",
-          launches=sum(r[2] for r in rows), kernels=len(rows),
-          dia_spmv_calls=sum(r[2] for r in dia),
-          dia_spmv_device_s=sum(r[1] for r in dia) * 1e-6,
-          top_kernels_ms=[(n[:70], round(us / 1e3, 3), c)
-                          for n, us, c in rows[:8]])
+    fields, _ = _profiled_step(it, state, "dia_spmv", times)
+    phase("bruss_breakdown", unprofiled_step_s=times, **fields)
 
 
 # ---------------------------------------------------------------------------
@@ -651,10 +637,10 @@ def time_dia():
             reps = 2000 if n < 4096 else 300
 
             def kern():
-                return dia_mod.dia_spmv(A, v)
+                return dia_spmv(A, v)
 
             def plain():
-                return dia_mod.dia_spmv_plain(A, v)
+                return dia_spmv_plain(A, v)
 
             def library():
                 return csr @ v
@@ -670,8 +656,8 @@ def time_dia():
             prows, _ = _profile(lambda: [plain() for _ in range(100)])
             lrows, _ = _profile(lambda: [library() for _ in range(100)])
             kdev = [r for r in krows if "dia_spmv_kernel" in r[0]]
-            nbytes = dia_mod.dia_spmv_bytes(n, offsets, 1, v.element_size())
-            flops = dia_mod.dia_spmv_flops(n, offsets, 1)
+            nbytes = dia_spmv_bytes(n, offsets, 1, v.element_size())
+            flops = dia_spmv_flops(n, offsets, 1)
             t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
             t_ops = flops / PEAK_FLOPS[dtype] * 1e3
             case = dict(dtype=str(dtype).split(".")[-1], n=n,

@@ -150,7 +150,9 @@ def _cont_par(pkg, n):
 def test_branch_matches_jax_with_hopf():
     n = SITES
     pj = jmodels.brusselator_1d(n=n, l=0.46)
-    pj = pj.re_make(jac_op=_dia_jac_op(jnp, JDIA, n))
+    # a strongly typed u0: the JAX Newton then compiles once, not twice
+    pj = pj.re_make(u0=jnp.asarray(np.asarray(pj.u0)),
+                    jac_op=_dia_jac_op(jnp, JDIA, n))
     br_j = bj.continuation(pj, bj.PALC(), _cont_par(bj, n))
 
     pt = tmodels.brusselator_1d(n=n, l=0.46, device="cpu")

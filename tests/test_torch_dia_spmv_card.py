@@ -14,16 +14,13 @@ Tolerance: relative to max |plain|, f64 1e-12 and f32 1e-5 (the kernel
 fuses each multiply-add where the plain version rounds the product
 first).
 """
-import importlib
-
 import numpy as np
 import pytest
 import torch
 
 from bifurcationkit.jl_tpu_torch.ops import DIAMatrix
-
-# the module, not the function of the same name that `ops` exports
-dia_mod = importlib.import_module("bifurcationkit.jl_tpu_torch.ops.dia_spmv")
+from bifurcationkit.jl_tpu_torch.ops.dia_spmv import (
+    MAX_DIAGS, dia_spmv, dia_spmv_plain)
 
 RTOL = {torch.float64: 1e-12, torch.float32: 1e-5}
 CASES = [(256, (-128, -1, 0, 1, 128), 1), (256, (-128, -1, 0, 1, 128), 8),
@@ -53,31 +50,31 @@ def _case(n, offsets, K, dtype, device, seed=4):
 @pytest.mark.parametrize("n,offsets,K", CASES)
 def test_kernel_matches_plain_on_card(cuda_device, n, offsets, K, dtype):
     A, v = _case(n, offsets, K, dtype, cuda_device)
-    before = dia_mod.dia_spmv.launches
-    out = dia_mod.dia_spmv(A, v)
+    before = dia_spmv.launches
+    out = dia_spmv(A, v)
     torch.cuda.synchronize()
-    assert dia_mod.dia_spmv.launches == before + 1
-    ref = dia_mod.dia_spmv_plain(A, v)
+    assert dia_spmv.launches == before + 1
+    ref = dia_spmv_plain(A, v)
     assert out.shape == ref.shape and out.dtype == dtype
     err = float((out - ref).abs().max() / ref.abs().max())
     assert err < RTOL[dtype]
     # the container's matvec is the same launch
     assert torch.equal(A(v), out)
-    assert dia_mod.dia_spmv.launches == before + 2
+    assert dia_spmv.launches == before + 2
 
 
 @pytest.mark.cuda
 def test_kernel_rejects_what_it_does_not_take(cuda_device):
     A, v = _case(256, (-128, 0, 128), 1, torch.float64, cuda_device)
     with pytest.raises(ValueError, match="must lie on"):
-        dia_mod.dia_spmv(A, v.cpu())
+        dia_spmv(A, v.cpu())
     with pytest.raises(TypeError, match="match data"):
-        dia_mod.dia_spmv(A, v.float())
+        dia_spmv(A, v.float())
     with pytest.raises(ValueError, match="must be contiguous"):
-        dia_mod.dia_spmv(A, torch.stack([v, v], dim=1)[:, 0])
+        dia_spmv(A, torch.stack([v, v], dim=1)[:, 0])
     with pytest.raises(ValueError, match="diagonals"):
-        many = tuple(range(dia_mod.MAX_DIAGS + 1))
-        dia_mod.dia_spmv(DIAMatrix(torch.zeros(len(many), 256, dtype=v.dtype,
+        many = tuple(range(MAX_DIAGS + 1))
+        dia_spmv(DIAMatrix(torch.zeros(len(many), 256, dtype=v.dtype,
                                                device=cuda_device), many), v)
     with pytest.raises(ValueError, match="v must be"):
-        dia_mod.dia_spmv(A, v[:100])
+        dia_spmv(A, v[:100])
