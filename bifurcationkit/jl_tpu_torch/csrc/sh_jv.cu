@@ -13,17 +13,44 @@
 // sh_jv_pallas (body _sh_jv_kernel), which needs N % block_rows == 0 and
 // M % 128 == 0; this kernel takes any (N, M) and any K.
 //
-// Design: one block computes a TN x TM output tile of one field.  It loads
-// the (TN+4) x (TM+4) halo of v (indices clamped to the domain) into shared
-// memory, computes w on the (TN+2) x (TM+2) ring at indices clamped to the
-// domain (the w-level closure), then applies the second stencil and the
-// diagonal term.  Device memory sees one read of u and v and one write of
-// the output; the intermediate w never leaves shared memory.
-//
 // Bound: bytes.  The function moves (1 + 2K) * N * M * sizeof(T) bytes for
-// about 24 * K * N * M flops.  At the 151 x 100 flagship grid one f64 field
-// is 121 KB, far below the 50 MB L2, so one launch there is set by launch
-// latency, not by bandwidth.
+// about 24 * K * N * M flops.  On the flagship's 151 x 100 grid that is
+// 0.05-4.4 microseconds of HBM time (f32 K = 1 to f64 K = 60), so what
+// bounds a call there is the launch, the latency of the first loads and,
+// at LOBPCG's K = 60, how many fields each SM keeps in flight against the
+// instructions and registers each output costs.
+//
+// Design: a block owns one TN x tm output tile (tm <= TM = 64 columns, one
+// per thread in x, spread evenly over the tiles of a row: two tiles of 50
+// at M = 100; each thread computes R rows of its column) and walks a chunk
+// of kc of the K fields:
+// - per block, once: each thread works out the clamped (Neumann) source
+//   offsets of its share of the (TN+4) x (tm+4) v halo, with no division,
+//   and keeps them in registers with the diagonal coefficient
+//   l + 2 nu u - 3 u^2 of its R outputs.  u is read once per block, not
+//   once per field;
+// - per field: the halo goes through a ring of STAGES shared-memory
+//   buffers.  While the block computes field k, cp.async (Hopper's
+//   asynchronous global-to-shared copy) fills the buffers of the next
+//   STAGES - 1 fields, so the copies overlap the arithmetic.  The clamped
+//   addresses are per element, which rules out TMA's zero-filled boxes at
+//   the edges; each thread copies its elements one by one from its
+//   precomputed offsets.  One barrier per field;
+// - the stencils run in registers: each thread slides a window down its R
+//   rows and computes w = (I + Lap) v at its column and at the columns on
+//   either side from the halo, so w never exists in memory.  A neighbour
+//   of w outside the domain is w at the centre (the second Laplacian's
+//   closure: w(-1) := w(0));
+// - grid: R = 4 (TN = 16-row tiles; at M = 100 two tiles of 50 columns
+//   read (16 + 4) x (50 + 4) halo points for 16 x 50 outputs, 1.35x, and
+//   1.43x over the 151 rows with the ragged last tile) when the tiles times
+//   K fill the SMs, otherwise R = 1 (TN = 4-row tiles, as at the flagship's
+//   K = 1) so that a small grid still spreads over more SMs.  The chunk kc
+//   is the fewest fields per block that fit the grid into one wave of
+//   resident blocks (the occupancy the runtime reports), so no tail wave
+//   follows.
+// Device memory sees one read of v, one read of u per block and one write
+// of the output.
 //
 // C interface for ctypes: each entry point launches on the given stream and
 // returns cudaGetLastError() (0 = success).
@@ -32,86 +59,257 @@
 
 namespace {
 
-constexpr int TM = 32;            // tile columns (contiguous axis)
-constexpr int TN = 8;             // tile rows
-constexpr int NT = TM * TN;       // threads per block, one per output
-constexpr int HM = TM + 4;        // v halo tile
-constexpr int HN = TN + 4;
-constexpr int WM = TM + 2;        // w ring tile
-constexpr int WN = TN + 2;
+constexpr int TX = 64;             // threads in x = tile columns
+constexpr int TY = 4;              // threads in y
+constexpr int NT = TX * TY;        // threads per block
+constexpr int BIG_R = 4;           // rows per thread: 16 x 64 tiles
+constexpr int SMALL_R = 1;         // ... 4 x 64 tiles for small grids
+constexpr int STAGES = 3;          // halo buffers: fields in flight + 1
+constexpr int MAX_BATCH = 65535;   // gridDim.z limit
+
+template <int R>
+struct Tile {
+  static constexpr int TN = TY * R, TM = TX;
+  static constexpr int HN = TN + 4, HM = TM + 4;      // v halo
+  static constexpr int HALO = HN * HM;
+  static constexpr int HQ = (HALO + NT - 1) / NT;     // halo points a thread
+};
 
 __device__ __forceinline__ int clampi(int i, int n) {
   return i < 0 ? 0 : (i >= n ? n - 1 : i);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(NT)
-sh_jv_kernel(const T* __restrict__ u, const T* __restrict__ v,
-             const T* __restrict__ scal, T* __restrict__ out, int N, int M) {
-  __shared__ T sv[HN][HM];
-  __shared__ T sw[WN][WM];
+// Row and column of the first element of a thread in a W-wide row-major
+// tile, and the step by NT elements: no division at run time.
+template <int W>
+__device__ __forceinline__ void first(int tid, int& a, int& b) {
+  a = 0;
+  b = tid;
+  while (b >= W) {
+    b -= W;
+    ++a;
+  }
+}
 
-  const int i0 = blockIdx.y * TN;
-  const int j0 = blockIdx.x * TM;
+template <int W>
+__device__ __forceinline__ void next(int& a, int& b) {
+  a += NT / W;
+  b += NT % W;
+  if (b >= W) {
+    b -= W;
+    ++a;
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ void cp_async(T* smem, const T* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n"
+               :: "r"(s), "l"(gmem), "n"(sizeof(T)) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's copy groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+template <typename T, int R>
+__global__ void __launch_bounds__(NT, 2)
+sh_jv_kernel(const T* __restrict__ u, const T* __restrict__ v,
+             const T* __restrict__ scal, T* __restrict__ out, int N, int M,
+             int K, int kc, int tm) {
+  using G = Tile<R>;
+  __shared__ T sv[STAGES][G::HALO];
+
+  const int tx = threadIdx.x;
+  const int ty = threadIdx.y;
+  const int tid = ty * TX + tx;
+  const int i0 = blockIdx.y * G::TN;
+  const int j0 = blockIdx.x * tm;       // tm <= TM columns of this tile
+  const int k0 = blockIdx.z * kc;
+  const int k1 = min(K, k0 + kc);
   const long long plane = static_cast<long long>(N) * M;
-  const T* vk = v + blockIdx.z * plane;
-  T* ok = out + blockIdx.z * plane;
+
+  // Sources of this thread's halo points in a field, clamped to the domain
+  // (the v-level closure), or -1 past the halo's TN + 4 rows and tm + 4
+  // columns.  sv[.][tid + q NT] is v[clamp(i0-2+a)][clamp(j0-2+b)].
+  long long src[G::HQ];
+  {
+    int a, b;
+    first<G::HM>(tid, a, b);
+#pragma unroll
+    for (int q = 0; q < G::HQ; ++q) {
+      src[q] = a < G::HN && b < tm + 4
+          ? static_cast<long long>(clampi(i0 - 2 + a, N)) * M
+                + clampi(j0 - 2 + b, M)
+          : -1;
+      next<G::HM>(a, b);
+    }
+  }
+
+  // One copy group per field (empty past the chunk), so that waiting for
+  // all but the newest STAGES - 2 groups waits for the oldest field.
+  auto fetch = [&](int k, T* buf) {
+    if (k < k1) {
+      const T* vk = v + k * plane;
+#pragma unroll
+      for (int q = 0; q < G::HQ; ++q) {
+        if (src[q] >= 0) cp_async(buf + tid + q * NT, vk + src[q]);
+      }
+    }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) fetch(k0 + s, sv[s]);
+
+  // This thread's outputs: column j, rows i0 + a0 .. i0 + a0 + R - 1, with
+  // their diagonal coefficients held across the fields (loaded while the
+  // first halos are in flight).
   const T l = scal[0];
   const T nu = scal[1];
   const T ihx2 = scal[2];
   const T ihy2 = scal[3];
-  const int tid = threadIdx.y * TM + threadIdx.x;
-
-  // 1. v on rows i0-2 .. i0+TN+1, cols j0-2 .. j0+TM+1, edge-replicated:
-  //    sv[a][b] = v[clamp(i0-2+a)][clamp(j0-2+b)]
-  for (int e = tid; e < HN * HM; e += NT) {
-    const int a = e / HM;
-    const int b = e - a * HM;
-    const int gi = clampi(i0 - 2 + a, N);
-    const int gj = clampi(j0 - 2 + b, M);
-    sv[a][b] = vk[static_cast<long long>(gi) * M + gj];
+  const int a0 = ty * R;
+  const int j = j0 + tx;
+  T coef[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int i = i0 + a0 + r;
+    const T uu = (i < N && j < M) ? u[static_cast<long long>(i) * M + j]
+                                  : T(0);
+    coef[r] = l + T(2) * nu * uu - T(3) * uu * uu;
   }
-  __syncthreads();
+  // w at a clamped neighbour is w at the centre (the second Laplacian's
+  // closure): these say which neighbours lie outside the domain
+  const bool left_edge = j == 0;
+  const bool right_edge = j == M - 1;
 
-  // 2. w = v + Lap v on rows i0-1 .. i0+TN, cols j0-1 .. j0+TM, each taken
-  //    at its CLAMPED global index (the second Laplacian's closure).  The
-  //    sv neighbours of a clamped index already hold the v-level closure.
-  for (int e = tid; e < WN * WM; e += NT) {
-    const int a = e / WM;
-    const int b = e - a * WM;
-    const int ci = clampi(i0 - 1 + a, N) - (i0 - 2);
-    const int cj = clampi(j0 - 1 + b, M) - (j0 - 2);
-    const T c = sv[ci][cj];
-    sw[a][b] = c + (sv[ci - 1][cj] - T(2) * c + sv[ci + 1][cj]) * ihx2
-                 + (sv[ci][cj - 1] - T(2) * c + sv[ci][cj + 1]) * ihy2;
-  }
-  __syncthreads();
+  int cur = 0;                       // buffer of field k
+  for (int k = k0; k < k1; ++k) {
+    // V(r, d) is v at tile row r, column j + d (halo row r + 2, column
+    // tx + 2 + d), already clamped to the domain
+    const T* h = sv[cur] + (a0 + 2) * G::HM + tx + 2;
+    const int prev = cur == 0 ? STAGES - 1 : cur - 1;
+    cur = cur == STAGES - 1 ? 0 : cur + 1;
+    cp_async_wait<STAGES - 2>();
+    // field k is in h, and every thread is done with field k - 1, whose
+    // buffer the next fetch overwrites
+    __syncthreads();
+    fetch(k + STAGES - 1, sv[prev]);
 
-  // 3. out = -(w + Lap w) + (l + 2 nu u - 3 u^2) v on the tile
-  const int a = threadIdx.y;
-  const int b = threadIdx.x;
-  const int i = i0 + a;
-  const int j = j0 + b;
-  if (i < N && j < M) {
-    const T c = sw[a + 1][b + 1];
-    const T L1v = c
-        + (sw[a][b + 1] - T(2) * c + sw[a + 2][b + 1]) * ihx2
-        + (sw[a + 1][b] - T(2) * c + sw[a + 1][b + 2]) * ihy2;
-    const long long idx = static_cast<long long>(i) * M + j;
-    const T uu = u[idx];
-    const T vv = sv[a + 2][b + 2];
-    ok[idx] = -L1v + (l + T(2) * nu * uu - T(3) * uu * uu) * vv;
+    // a window sliding down the R rows: w = v + Lap v at the centre and
+    // the four neighbours of each output, from v in registers
+    T c_m2 = h[-2 * G::HM], c_m1 = h[-G::HM], c_0 = h[0], c_p1 = h[G::HM];
+    T l_m1 = h[-G::HM - 1], l_0 = h[-1];
+    T r_m1 = h[-G::HM + 1], r_0 = h[1];
+    T w_up = c_m1 + (c_m2 - T(2) * c_m1 + c_0) * ihx2
+                  + (l_m1 - T(2) * c_m1 + r_m1) * ihy2;
+    T w_c = c_0 + (c_m1 - T(2) * c_0 + c_p1) * ihx2
+                + (l_0 - T(2) * c_0 + r_0) * ihy2;
+    T* ok = out + k * plane;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const T* hr = h + r * G::HM;
+      const T c_p2 = hr[2 * G::HM];
+      const T l_p1 = hr[G::HM - 1];
+      const T r_p1 = hr[G::HM + 1];
+      const T l2_0 = hr[-2];
+      const T r2_0 = hr[2];
+      const T w_dn = c_p1 + (c_0 - T(2) * c_p1 + c_p2) * ihx2
+                          + (l_p1 - T(2) * c_p1 + r_p1) * ihy2;
+      const T w_l = l_0 + (l_m1 - T(2) * l_0 + l_p1) * ihx2
+                        + (l2_0 - T(2) * l_0 + c_0) * ihy2;
+      const T w_r = r_0 + (r_m1 - T(2) * r_0 + r_p1) * ihx2
+                        + (c_0 - T(2) * r_0 + r2_0) * ihy2;
+      const int i = i0 + a0 + r;
+      const T up = i == 0 ? w_c : w_up;
+      const T dn = i == N - 1 ? w_c : w_dn;
+      const T lf = left_edge ? w_c : w_l;
+      const T rt = right_edge ? w_c : w_r;
+      const T L1v = w_c + (up - T(2) * w_c + dn) * ihx2
+                        + (lf - T(2) * w_c + rt) * ihy2;
+      if (i < N && j < M && tx < tm) {
+        ok[static_cast<long long>(i) * M + j] = -L1v + coef[r] * c_0;
+      }
+      // slide down one row
+      w_up = w_c;
+      w_c = w_dn;
+      c_0 = c_p1;
+      c_p1 = c_p2;
+      l_m1 = l_0;
+      l_0 = l_p1;
+      r_m1 = r_0;
+      r_0 = r_p1;
+    }
   }
+}
+
+// The card's SMs, asked of the runtime once per process.  The count only
+// sizes the grid, so a launch on a card of another size stays correct.
+int sm_count() {
+  static const int sms = [] {
+    int device = 0, n = 0;
+    cudaGetDevice(&device);
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, device);
+    return n > 0 ? n : 1;
+  }();
+  return sms;
+}
+
+// Blocks of sh_jv_kernel<T, R> that one SM holds at once (registers and
+// shared memory allow), asked of the runtime once per process.
+template <typename T, int R>
+int resident_per_sm() {
+  static const int blocks = [] {
+    int b = 0;
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&b, sh_jv_kernel<T, R>, NT,
+                                                  0);
+    return b > 0 ? b : 1;
+  }();
+  return blocks;
+}
+
+template <typename T, int R>
+int walk(const T* u, const T* v, const T* scal, T* out, int N, int M, int K,
+         cudaStream_t stream) {
+  using G = Tile<R>;
+  const int tiles_x = (M + G::TM - 1) / G::TM;
+  const int tm = (M + tiles_x - 1) / tiles_x;   // the columns spread evenly
+  const int tiles_y = (N + G::TN - 1) / G::TN;
+  const long long tiles = static_cast<long long>(tiles_x) * tiles_y;
+  // fields per block: the fewest that fit the grid into one wave of
+  // resident blocks, so that no tail wave follows
+  const long long wave =
+      static_cast<long long>(sm_count()) * resident_per_sm<T, R>();
+  long long kc = (tiles * K + wave - 1) / wave;
+  kc = kc < 1 ? 1 : (kc > K ? K : kc);
+  const int chunks = static_cast<int>((K + kc - 1) / kc);
+  const dim3 grid(tiles_x, tiles_y, chunks);
+  sh_jv_kernel<T, R><<<grid, dim3(TX, TY, 1), 0, stream>>>(
+      u, v, scal, out, N, M, K, static_cast<int>(kc), tm);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int launch(const T* u, const T* v, const T* scal, T* out, int N, int M, int K,
            void* stream) {
-  const dim3 block(TM, TN, 1);
-  const dim3 grid((M + TM - 1) / TM, (N + TN - 1) / TN, K);
-  sh_jv_kernel<T><<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      u, v, scal, out, N, M);
-  return static_cast<int>(cudaGetLastError());
+  if (N < 1 || M < 1 || K < 0 || K > MAX_BATCH) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (K == 0) return static_cast<int>(cudaGetLastError());
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  using Big = Tile<BIG_R>;
+  const long long big_tiles =
+      static_cast<long long>((N + Big::TN - 1) / Big::TN) * ((M + TX - 1) / TX);
+  if (big_tiles * K >= sm_count()) {
+    return walk<T, BIG_R>(u, v, scal, out, N, M, K, s);
+  }
+  return walk<T, SMALL_R>(u, v, scal, out, N, M, K, s);
 }
 
 }  // namespace

@@ -12,7 +12,7 @@ import torch
 
 from .. import DEFAULT_DTYPE, resolve_device
 from ..core.problem import BifurcationProblem
-from ..ops.sh_jv import lap_neumann, sh_jv
+from ..ops.sh_jv import lap_neumann, sh_jv_operator
 
 
 # ---------------------------------------------------------------------------
@@ -108,13 +108,13 @@ def swift_hohenberg_2d(Nx: int = 151, Ny: int = 100, lx: float = 8 * np.pi,
 
     def jac_op(u, par):
         """v -> J(u, par) v through the fused kernel; v is (Nx, Ny) or a
-        batch (K, Nx, Ny)."""
+        batch (K, Nx, Ny).  u and the scalars are checked once here, at
+        the linearisation point, not at every product."""
         dt = u.dtype
         lnu = torch.stack([torch.as_tensor(par["l"], device=dev),
                            torch.as_tensor(par["nu"], device=dev)]).to(dt)
-        scal = torch.cat([lnu, inv_h2.to(dt)])
-        uc = u.contiguous()
-        return lambda v: sh_jv(uc, v.contiguous(), scal)
+        op = sh_jv_operator(u.contiguous(), torch.cat([lnu, inv_h2.to(dt)]))
+        return lambda v: op(v.contiguous())
 
     X = -lx + 2 * lx / Nx * np.arange(Nx)
     Y = -ly + 2 * ly / Ny * np.arange(Ny)

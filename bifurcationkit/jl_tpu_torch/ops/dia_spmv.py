@@ -13,10 +13,18 @@ The JAX package's `dia_spmv(use_pallas=...)` opt-in is not carried over:
 on the card the kernel is the path for every CUDA tensor.  A CPU tensor
 takes the plain version; a CUDA tensor launches the kernel or raises.
 The kernel is built at first use with `nvcc` (`ops/nvcc.py`).
+
+The launch path is lean and keeps no state on the matrix: each product
+checks `data` and v by attribute compares (the full checks, with their
+messages, run only when one fails), takes the entry point for the dtype
+and the offsets as a C array from caches keyed by dtype and by offsets,
+allocates the output and launches.  What the matrix holds at the call is
+what the kernel reads.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Sequence
 
 import torch
@@ -27,39 +35,26 @@ from . import nvcc
 SOURCE = nvcc.CSRC / "dia_spmv.cu"
 MAX_DIAGS = 32              # the kernel's parameter array
 _MAX_BATCH = 65535          # gridDim.y limit
+_DTYPES = (torch.float32, torch.float64)
 _SIGNATURE = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
               ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
               ctypes.c_void_p]
 
 
-def _library():
-    return nvcc.load_library(SOURCE, {"dia_spmv_f32": _SIGNATURE,
-                                      "dia_spmv_f64": _SIGNATURE})
+@functools.lru_cache(maxsize=None)
+def _entry(dtype: torch.dtype):
+    """The kernel's entry point for dtype, built and bound at first use."""
+    lib = nvcc.load_library(SOURCE, {"dia_spmv_f32": _SIGNATURE,
+                                     "dia_spmv_f64": _SIGNATURE})
+    return lib.dia_spmv_f64 if dtype == torch.float64 else lib.dia_spmv_f32
 
 
-def _check(data: torch.Tensor, offsets: Sequence[int], v: torch.Tensor):
-    for name, t in (("data", data), ("v", v)):
-        if t.device.type != "cuda" or t.device != data.device:
-            raise ValueError(f"dia_spmv: {name} must lie on {data.device} "
-                             f"(cuda), got {t.device}")
-        if t.dtype not in (torch.float32, torch.float64) \
-                or t.dtype != data.dtype:
-            raise TypeError(f"dia_spmv: {name} must be float32 or float64 "
-                            f"and match data ({data.dtype}), got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"dia_spmv: {name} must be contiguous")
-    if data.dim() != 2 or data.shape[0] != len(offsets):
-        raise ValueError(f"dia_spmv: data must be (ndiag, n) with ndiag = "
-                         f"{len(offsets)} offsets, got {tuple(data.shape)}")
-    if len(offsets) > MAX_DIAGS:
-        raise ValueError(f"dia_spmv: {len(offsets)} diagonals > "
-                         f"{MAX_DIAGS}")
-    n = data.shape[1]
-    if v.shape[-1:] != (n,) or v.dim() not in (1, 2):
-        raise ValueError(f"dia_spmv: v must be (n,) or (K, n) with n = {n}, "
-                         f"got {tuple(v.shape)}")
-    if v.dim() == 2 and v.shape[0] > _MAX_BATCH:
-        raise ValueError(f"dia_spmv: batch {v.shape[0]} > {_MAX_BATCH}")
+@functools.lru_cache(maxsize=None)
+def _c_offsets(offsets: tuple):
+    """The offsets as a C int array and its address, built once per set of
+    offsets (the array lives in this cache)."""
+    arr = (ctypes.c_int * max(len(offsets), 1))(*offsets)
+    return arr, ctypes.addressof(arr)
 
 
 def dia_spmv(A, v: torch.Tensor) -> torch.Tensor:
@@ -71,23 +66,37 @@ def dia_spmv(A, v: torch.Tensor) -> torch.Tensor:
     data, offsets = A.data, A.offsets
     if data.device.type == "cpu" and v.device.type == "cpu":
         return dia_spmv_plain(A, v)
-    _check(data, offsets, v)
+    dtype = data.dtype
+    if not (data.is_cuda and v.device == data.device and v.dtype is dtype
+            and dtype in _DTYPES and v.is_contiguous()
+            and data.is_contiguous()):
+        nvcc.check_operand("dia_spmv", "data", data, data, "data")
+        nvcc.check_operand("dia_spmv", "v", v, data, "data")
+    ndiag, dshape, shape = len(offsets), data.shape, v.shape
+    if len(dshape) != 2 or dshape[0] != ndiag:
+        raise ValueError(f"dia_spmv: data must be (ndiag, n) with ndiag "
+                         f"= {ndiag} offsets, got {tuple(dshape)}")
+    if ndiag > MAX_DIAGS:
+        raise ValueError(f"dia_spmv: {ndiag} diagonals > {MAX_DIAGS}")
+    n = dshape[1]
+    if len(shape) == 1 and shape[0] == n:
+        K = 1
+    elif len(shape) == 2 and shape[1] == n:
+        K = shape[0]
+        if K > _MAX_BATCH:
+            raise ValueError(f"dia_spmv: batch {K} > {_MAX_BATCH}")
+    else:
+        raise ValueError(f"dia_spmv: v must be (n,) or (K, n) with n = {n}, "
+                         f"got {tuple(shape)}")
     out = torch.empty_like(v)
-    n = data.shape[1]
-    K = 1 if v.dim() == 1 else v.shape[0]
     if K == 0 or n == 0:
         return out
-    lib = _library()
-    fn = lib.dia_spmv_f64 if data.dtype == torch.float64 else lib.dia_spmv_f32
-    offs = (ctypes.c_int * max(len(offsets), 1))(*offsets)
-    with torch.cuda.device(data.device):
-        stream = torch.cuda.current_stream(data.device).cuda_stream
-        err = fn(data.data_ptr(), offs, len(offsets), v.data_ptr(),
-                 out.data_ptr(), n, K, stream)
+    err = nvcc.launch(_entry(dtype), data.get_device(), data.data_ptr(),
+                      _c_offsets(tuple(offsets))[1], ndiag, v.data_ptr(),
+                      out.data_ptr(), n, K)
     if err != 0:
         raise RuntimeError(f"dia_spmv kernel launch failed: CUDA error {err} "
-                           f"(n={n}, K={K}, ndiag={len(offsets)}, "
-                           f"{data.dtype})")
+                           f"(n={n}, K={K}, ndiag={ndiag}, {dtype})")
     dia_spmv.launches += 1
     return out
 

@@ -8,7 +8,8 @@ report goes to the `.log` beside it.  Each source exports a plain C
 interface whose functions launch on the given stream and return
 `cudaGetLastError()` (0 = success), so every bound function returns
 `int`.  `build_libraries` starts one `nvcc` process per source that needs
-building, all at once, and waits for them.
+building, all at once, and waits for them.  `launch` calls a bound entry
+point on PyTorch's current stream.
 """
 from __future__ import annotations
 
@@ -19,6 +20,8 @@ import shutil
 import subprocess
 from pathlib import Path
 from typing import Dict, List, Sequence
+
+import torch
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -87,3 +90,29 @@ def load_library(source: Path, functions: Dict[str, Sequence]) -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         _loaded[source] = lib
     return lib
+
+
+def check_operand(kernel: str, name: str, t: torch.Tensor,
+                  ref: torch.Tensor, ref_name: str):
+    """Refuse a tensor a kernel does not take: `t` must lie on `ref`'s CUDA
+    device, have `ref`'s dtype (float32 or float64) and be contiguous."""
+    if t.device.type != "cuda" or t.device != ref.device:
+        raise ValueError(f"{kernel}: {name} must lie on {ref.device} (cuda), "
+                         f"got {t.device}")
+    if t.dtype not in (torch.float32, torch.float64) or t.dtype != ref.dtype:
+        raise TypeError(f"{kernel}: {name} must be float32 or float64 and "
+                        f"match {ref_name} ({ref.dtype}), got {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{kernel}: {name} must be contiguous")
+
+
+def launch(fn, index: int, *args) -> int:
+    """`fn(*args, stream)` with PyTorch's current raw stream of CUDA device
+    `index`; returns fn's error code.  A call on the current device builds
+    neither a `torch.cuda.device` context nor a `torch.cuda.Stream` object;
+    another device is entered for the call."""
+    C = torch._C
+    if C._cuda_getDevice() == index:
+        return fn(*args, C._cuda_getCurrentRawStream(index))
+    with torch.cuda.device(index):
+        return fn(*args, C._cuda_getCurrentRawStream(index))

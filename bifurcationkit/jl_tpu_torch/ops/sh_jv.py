@@ -17,10 +17,17 @@ sync and no rebuild.
 The kernel is built at first use with `nvcc` into `build/` beside this
 package and bound with ctypes (`ops/nvcc.py`).  A CPU tensor takes the
 plain version; a CUDA tensor launches the kernel or raises.
+
+The launch path is lean: `sh_jv_operator(u, scal)` checks u and scal and
+binds the entry point once per linearisation point (the SH model's
+`jac_op` builds one per point), and each product then checks only v by
+attribute compares, allocates the output and launches.  `sh_jv` called
+directly checks everything on every call.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -31,34 +38,67 @@ _MAX_BATCH = 65535          # gridDim.z limit
 _SIGNATURE = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 
 
-def _library():
-    return nvcc.load_library(SOURCE, {"sh_jv_f32": _SIGNATURE,
-                                      "sh_jv_f64": _SIGNATURE})
+@functools.lru_cache(maxsize=None)
+def _entry(dtype: torch.dtype):
+    """The kernel's entry point for dtype, built and bound at first use."""
+    lib = nvcc.load_library(SOURCE, {"sh_jv_f32": _SIGNATURE,
+                                     "sh_jv_f64": _SIGNATURE})
+    return lib.sh_jv_f64 if dtype == torch.float64 else lib.sh_jv_f32
 
 
-def _check(u: torch.Tensor, v: torch.Tensor, scal: torch.Tensor):
-    for name, t in (("u", u), ("v", v), ("scal", scal)):
-        if t.device.type != "cuda" or t.device != u.device:
-            raise ValueError(f"sh_jv: {name} must lie on {u.device} (cuda), "
-                             f"got {t.device}")
-        if t.dtype not in (torch.float32, torch.float64) \
-                or t.dtype != u.dtype:
-            raise TypeError(f"sh_jv: {name} must be float32 or float64 and "
-                            f"match u ({u.dtype}), got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"sh_jv: {name} must be contiguous")
+def _card_operator(u: torch.Tensor, scal: torch.Tensor):
+    """v -> J v through the kernel, with u and scal checked here once."""
+    for name, t in (("u", u), ("scal", scal)):
+        nvcc.check_operand("sh_jv", name, t, u, "u")
     if u.dim() != 2 or min(u.shape) < 1:
         raise ValueError(f"sh_jv: u must be a non-empty (N, M) field, got "
                          f"{tuple(u.shape)}")
-    if not (v.shape == u.shape
-            or (v.dim() == 3 and v.shape[1:] == u.shape)):
-        raise ValueError(f"sh_jv: v must be (N, M) or (K, N, M) with "
-                         f"(N, M) = {tuple(u.shape)}, got {tuple(v.shape)}")
-    if v.dim() == 3 and v.shape[0] > _MAX_BATCH:
-        raise ValueError(f"sh_jv: batch {v.shape[0]} > {_MAX_BATCH}")
     if scal.shape != (4,):
         raise ValueError(f"sh_jv: scal must have shape (4,), got "
                          f"{tuple(scal.shape)}")
+    fn = _entry(u.dtype)
+    device, index, dtype, field = u.device, u.get_device(), u.dtype, u.shape
+    N, M = field
+    u_ptr, scal_ptr = u.data_ptr(), scal.data_ptr()
+
+    def op(v: torch.Tensor) -> torch.Tensor:
+        if v.device != device or v.dtype is not dtype \
+                or not v.is_contiguous():
+            nvcc.check_operand("sh_jv", "v", v, u, "u")
+        shape = v.shape
+        if shape == field:
+            K = 1
+        elif len(shape) == 3 and shape[1:] == field:
+            K = shape[0]
+            if K > _MAX_BATCH:
+                raise ValueError(f"sh_jv: batch {K} > {_MAX_BATCH}")
+        else:
+            raise ValueError(f"sh_jv: v must be (N, M) or (K, N, M) with "
+                             f"(N, M) = {tuple(field)}, got {tuple(shape)}")
+        out = torch.empty_like(v)
+        if K == 0:
+            return out
+        err = nvcc.launch(fn, index, u_ptr, v.data_ptr(), scal_ptr,
+                          out.data_ptr(), N, M, K)
+        if err != 0:
+            raise RuntimeError(f"sh_jv kernel launch failed: CUDA error "
+                               f"{err} ({N}x{M}, K={K}, {dtype})")
+        sh_jv.launches += 1
+        by_batch = sh_jv.launches_by_batch
+        by_batch[K] = by_batch.get(K, 0) + 1
+        return out
+
+    op.u, op.scal = u, scal        # the pointers above stay valid with them
+    return op
+
+
+def sh_jv_operator(u: torch.Tensor, scal: torch.Tensor):
+    """The map v -> J(u) v of `sh_jv` at one linearisation point.  On the
+    card, u and scal are checked once here and each call checks only v;
+    with u and scal on the CPU, each call is `sh_jv`."""
+    if u.device.type == "cpu" and scal.device.type == "cpu":
+        return lambda v: sh_jv(u, v, scal)
+    return _card_operator(u, scal)
 
 
 def sh_jv(u: torch.Tensor, v: torch.Tensor, scal: torch.Tensor
@@ -67,30 +107,16 @@ def sh_jv(u: torch.Tensor, v: torch.Tensor, scal: torch.Tensor
     [l, nu, 1/hx^2, 1/hy^2], all of one dtype (f32 or f64).
 
     CPU tensors take `sh_jv_plain`; CUDA tensors launch the kernel on the
-    current stream (counted in `sh_jv.launches`) or raise."""
+    current stream (counted in `sh_jv.launches`, and by batch size K in
+    `sh_jv.launches_by_batch`) or raise."""
     if u.device.type == "cpu" and v.device.type == "cpu" \
             and scal.device.type == "cpu":
         return sh_jv_plain(u, v, scal)
-    _check(u, v, scal)
-    out = torch.empty_like(v)
-    K = 1 if v.dim() == 2 else v.shape[0]
-    if K == 0:
-        return out
-    N, M = u.shape
-    lib = _library()
-    fn = lib.sh_jv_f64 if u.dtype == torch.float64 else lib.sh_jv_f32
-    with torch.cuda.device(u.device):
-        stream = torch.cuda.current_stream(u.device).cuda_stream
-        err = fn(u.data_ptr(), v.data_ptr(), scal.data_ptr(), out.data_ptr(),
-                 N, M, K, stream)
-    if err != 0:
-        raise RuntimeError(f"sh_jv kernel launch failed: CUDA error {err} "
-                           f"({N}x{M}, K={K}, {u.dtype})")
-    sh_jv.launches += 1
-    return out
+    return _card_operator(u, scal)(v)
 
 
 sh_jv.launches = 0
+sh_jv.launches_by_batch = {}
 
 
 def lap_neumann(u: torch.Tensor, h2, axis: int) -> torch.Tensor:

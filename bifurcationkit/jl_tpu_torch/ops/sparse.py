@@ -40,13 +40,12 @@ class DIAMatrix:
     def nnz(self):
         return self.data.shape[0] * self.data.shape[1]
 
-    def __call__(self, v):
-        return self.matvec(v)
-
     def matvec(self, v):
         """sum_k data[k, i] * v[i + off_k], v zero outside [0, n); v is
         (n,) or (K, n)."""
         return dia_spmv(self, v.contiguous())
+
+    __call__ = matvec
 
     def todense(self):
         n = self.data.shape[1]

@@ -10,32 +10,50 @@ Phases, one line each (a failing phase raises and the script exits non-zero):
 2. build: compiles both kernels, the SH J.v (`csrc/sh_jv.cu`) and the DIA
    SpMV (`csrc/dia_spmv.cu`), one nvcc process each, started together;
 3. kernel vs plain: each kernel against its plain PyTorch version on the
-   card, f64 and f32 — SH J.v at the flagship shape (K = 1, 2, 60), at
-   1024x1024 and at a ragged 37x23; DIA SpMV at the Brusselator path's
-   shape (n = 256, offsets -128, -1, 0, 1, 128; K = 1 and 8), at a ragged
-   n, with offsets +-5000 on n = 20,000, and with 5 diagonals on 2^20 rows;
+   card, f64 and f32 — SH J.v at the flagship shape (K = 1, 2, 20, 40,
+   59, 60, 61: every batch size the flagship launches and around them),
+   at 1024x1024, at a ragged 37x23, on grids with N or M in
+   {1, 2, 3, 5} and on tiles ragged on both axes; DIA SpMV at the
+   Brusselator path's shape (n = 256, offsets -128, -1, 0, 1, 128; K = 1
+   and 8), at a ragged n, with offsets +-5000 on n = 20,000, with 5
+   diagonals on 2^20 rows, at n of 1 to 3, with 12 and 32 diagonals, and
+   on a matrix whose `data` is replaced after its first product (the
+   product must read what the matrix holds at the call);
 4. main paths, each with every kernel's launch count reset just before it
    and read just after:
    a. the SH2d-fronts flagship at 151x100 — Newton, then PALC through
       `ContIterable` (2 warm-up + 6 timed steps) and `continuation()` with
       bifurcation detection — and one profiled step (busy time, idle
-      share, longest kernels);
+      share, longest kernels); the `sh_jv` launches split by batch size;
    b. the Brusselator at 128 sites (256 unknowns) with its jacobian as a
       five-diagonal `DIAMatrix` — Newton from a perturbed guess, then PALC
       with GMRES and shift-invert Arnoldi sweeps that detect and bisect
-      the Hopf point, with `p_max` cut just past it — and one profiled
-      step;
+      the Hopf point (at l = 0.5103642674 to 1e-8), with `p_max` cut just
+      past it — and one profiled step;
 5. check: the flagship's last point is a finite root of F, a 60x40 SH
    branch and a 32-site Brusselator branch on the card match the same
    branches on the CPU;
 6. timing: each kernel, its plain version and its bound at the main
-   paths' shapes (CUDA events over back-to-back calls, and the card's own
-   time per call from torch.profiler); for DIA SpMV also one cuSPARSE CSR
-   matrix-vector product through PyTorch, timed as a yardstick only.
+   paths' shapes: the wrapper's time (CUDA events over back-to-back
+   calls), its host time per call (the host clock over calls with no
+   sync), the card's own time per call from torch.profiler (back to back
+   on the same inputs, and where a call moves 1 MiB or more also cold:
+   taken in turn over copies of its inputs three times the L2 cache's
+   size, so that each call reads from HBM), and the device floor (the
+   profiler's time of a one-element `add_`); for SH J.v
+   also through the operator the SH model's `jac_op` uses, for DIA SpMV
+   also one cuSPARSE CSR matrix-vector product through PyTorch, timed as
+   a yardstick only.  At K = 1 on the flagship grid and at the
+   Brusselator path's shape the host time is split into its parts: the
+   output's allocation, the ctypes call (with the CUDA launch in it), and
+   the stream and device queries around it.
 
 Then the nvidia-smi line, one JSON line listing the kernels, and the final
 JSON line.  Full details go to chiprun_out/chip_smoke.json.
 """
+import dataclasses
+import functools
+import itertools
 import json
 import os
 import subprocess
@@ -57,11 +75,13 @@ from bifurcationkit.jl_tpu_torch.ops import (  # noqa: E402
     DIAMatrix, dia_spmv, nvcc)
 from bifurcationkit.jl_tpu_torch.ops import sh_jv as sh_jv_mod  # noqa: E402
 from bifurcationkit.jl_tpu_torch.ops.dia_spmv import (  # noqa: E402
-    SOURCE as DIA_SOURCE, dia_spmv_bytes, dia_spmv_flops, dia_spmv_plain)
+    SOURCE as DIA_SOURCE, _c_offsets, _entry as dia_entry, dia_spmv_bytes,
+    dia_spmv_flops, dia_spmv_plain)
 
 # NVIDIA H100 SXM data sheet: HBM3 3.35 TB/s; FP64 34 TFLOP/s and FP32
 # 67 TFLOP/s outside the tensor cores (neither kernel uses them)
 HBM_BYTES_PER_S = 3.35e12
+L2_BYTES = 50 * 2 ** 20    # the H100 SXM's L2 cache
 PEAK_FLOPS = {torch.float64: 34e12, torch.float32: 67e12}
 TOL = {torch.float64: 1e-12, torch.float32: 1e-5}
 NEWTON_TOL = 1e-7          # the continuation's Newton tolerance
@@ -76,12 +96,15 @@ def phase(tag, **fields):
           flush=True)
 
 
-def smi_line():
+def smi_line(query="name,power.limit"):
     out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True)
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+# read beside the timing phases: device times follow the SM clock
+CLOCKS = "clocks.sm,clocks.mem,power.draw,temperature.gpu"
 
 
 # ---------------------------------------------------------------------------
@@ -115,6 +138,7 @@ def build():
 
 def reset_launches():
     sh_jv_mod.sh_jv.launches = 0
+    sh_jv_mod.sh_jv.launches_by_batch.clear()
     dia_spmv.launches = 0
 
 
@@ -135,9 +159,16 @@ def _inputs(shape, K, dtype, seed):
 
 
 def compare_kernel():
-    cases = [((151, 100), 1), ((151, 100), 2), ((151, 100), 60),
-             ((1024, 1024), 1), ((37, 23), 1), ((37, 23), 3)]
-    worst_main = 0.0
+    # the flagship grid at every batch size its path launches (GMRES's
+    # K = 1, LOBPCG's 20, 40 and 60) and at 2, 59 and 61, and grids with N
+    # or M in {1, 2, 3, 5} and tiles ragged on both axes
+    cases = [((151, 100), 1), ((151, 100), 2), ((151, 100), 20),
+             ((151, 100), 40), ((151, 100), 59), ((151, 100), 60),
+             ((151, 100), 61), ((1024, 1024), 1),
+             ((37, 23), 1), ((37, 23), 3), ((1, 1), 1), ((1, 7), 2),
+             ((2, 5), 3), ((3, 130), 1), ((5, 2), 61), ((70, 1), 2),
+             ((5, 3), 59), ((21, 130), 4), ((17, 65), 1)]
+    worst_main, flagship_ks = 0.0, set()
     for dtype in (torch.float64, torch.float32):
         for i, (shape, K) in enumerate(cases):
             u, v, scal = _inputs(shape, K, dtype, seed=i)
@@ -154,18 +185,24 @@ def compare_kernel():
                                      f"version: {rel} >= {TOL[dtype]}")
             if shape == (151, 100):
                 worst_main = max(worst_main, abs_err)
-    return worst_main
+                flagship_ks.add(K)
+    return worst_main, flagship_ks
 
 
 # (n, offsets, K): the Brusselator path's shape at K = 1 and 8, a ragged n,
-# offsets far beyond any tile, and 5 diagonals on 2^20 rows
+# offsets far beyond any tile, 5 diagonals on 2^20 rows, n of 1 to 3, and
+# more diagonals than one of the kernel's unrolled groups of 8 (12, and
+# the most it takes, 32)
 BRUSS_SITES = 128
 PATH_OFFSETS = (-BRUSS_SITES, -1, 0, 1, BRUSS_SITES)
 DIA_CASES = [(2 * BRUSS_SITES, PATH_OFFSETS, 1),
              (2 * BRUSS_SITES, PATH_OFFSETS, 8),
              (1000, (-37, -1, 0, 2, 999), 3),
              (20000, (-5000, -1, 0, 1, 5000), 1),
-             (1 << 20, (-1024, -1, 0, 1, 1024), 1)]
+             (1 << 20, (-1024, -1, 0, 1, 1024), 1),
+             (1, (0,), 1), (2, (-1, 0, 1), 2), (3, (-5, -2, 0, 1, 3), 1),
+             (300, tuple(range(-6, 6)), 2),
+             (777, tuple(range(-40, 40, 5)) + tuple(range(300, 1100, 50)), 3)]
 
 
 def _dia_inputs(n, offsets, K, dtype, seed):
@@ -196,7 +233,44 @@ def compare_dia():
                                      f"version: {rel} >= {TOL[dtype]}")
             if n == 2 * BRUSS_SITES:
                 worst_path = max(worst_path, abs_err)
-    return worst_path
+    return max(worst_path, compare_dia_replaced())
+
+
+def compare_dia_replaced():
+    """A matrix at the path's shape whose `data` is replaced after its
+    first product (on the matrix, by `dataclasses.replace`, in place, and
+    by `data` of the other dtype): each product must be the plain one of
+    what the matrix holds at the call."""
+    worst = 0.0
+
+    def check(how, M, w):
+        out = M(w)
+        torch.cuda.synchronize()
+        ref = dia_spmv_plain(M, w)
+        abs_err = float((out - ref).abs().max())
+        rel = abs_err / float(ref.abs().max())
+        tol = TOL[w.dtype]
+        phase("compare_dia_replaced", dtype=str(w.dtype).split(".")[-1],
+              replaced=how, max_abs_err=abs_err, max_rel_err=rel, tol=tol)
+        if not (rel < tol):
+            raise AssertionError(f"dia_spmv after its data was replaced "
+                                 f"({how}): {rel} >= {tol}")
+        return abs_err if w.dtype == torch.float64 else 0.0
+
+    for dtype, other in ((torch.float64, torch.float32),
+                         (torch.float32, torch.float64)):
+        A, v = _dia_inputs(2 * BRUSS_SITES, PATH_OFFSETS, 1, dtype, seed=30)
+        B, _ = _dia_inputs(2 * BRUSS_SITES, PATH_OFFSETS, 1, dtype, seed=31)
+        A(v)
+        object.__setattr__(A, "data", B.data.clone())
+        worst = max(worst, check("set", A, v))
+        worst = max(worst, check("dataclasses.replace",
+                                 dataclasses.replace(A, data=2 * B.data), v))
+        A.data.copy_(3 * B.data)
+        worst = max(worst, check("in place", A, v))
+        object.__setattr__(A, "data", A.data.to(other))
+        worst = max(worst, check("other dtype", A, v.to(other)))
+    return worst
 
 
 # ---------------------------------------------------------------------------
@@ -275,13 +349,14 @@ def main_path(card, warmup=2, timed=6, detect_steps=6):
                    zip(branch["sp_type"], branch["sp_p"])],
           seconds=round(time.perf_counter() - t1, 3))
     launches = sh_jv_mod.sh_jv.launches
+    by_batch = dict(sorted(sh_jv_mod.sh_jv.launches_by_batch.items()))
     if launches <= 0:
         raise AssertionError("the main path never launched the sh_jv kernel")
     phase("main_path", steps_per_s=steps_per_s, warm_step_s=warm,
-          sh_jv_launches=launches,
+          sh_jv_launches=launches, sh_jv_launches_by_batch=by_batch,
           peak_mib=torch.cuda.max_memory_allocated() / 2 ** 20,
           card=repr(card))
-    return prob, state, launches, steps_per_s
+    return prob, state, launches, by_batch, steps_per_s
 
 
 def _kernel_rows(prof):
@@ -376,6 +451,8 @@ def breakdown(it, state, timed_steps):
 # ---------------------------------------------------------------------------
 
 BRUSS_P_MAX = 0.55        # depth cut: the branch stops just past its Hopf
+# the Hopf point of the 128-site branch, as the same code finds it on the CPU
+BRUSS_HOPF_L = 0.5103642674
 
 
 def brusselator_dia_jac_op(n):
@@ -463,6 +540,9 @@ def brusselator_path(card):
     if not hopf or hopf[0].status != "converged":
         raise AssertionError("the Brusselator branch did not detect and "
                              "bisect a Hopf point")
+    if not abs(hopf[0].param - BRUSS_HOPF_L) < 1e-8:
+        raise AssertionError(f"the Hopf point moved: l = {hopf[0].param}, "
+                             f"not {BRUSS_HOPF_L}")
     if launches <= 0:
         raise AssertionError("the Brusselator path never launched the "
                              "dia_spmv kernel")
@@ -552,6 +632,8 @@ def check_bruss_small(n=32):
 
 
 def _time(fn, reps):
+    """Milliseconds per call on CUDA events over back-to-back calls: the
+    wrapper's time, the host's or the card's, whichever is longer."""
     for _ in range(5):
         fn()
     torch.cuda.synchronize()
@@ -564,46 +646,132 @@ def _time(fn, reps):
     return a.elapsed_time(b) / reps
 
 
-def time_kernel():
-    cases = []
+def _host_time(fn, reps):
+    """Milliseconds per call on the host clock over calls with no sync:
+    the host's share of a call."""
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    dt = time.perf_counter() - t
+    torch.cuda.synchronize()
+    return dt / reps * 1e3
+
+
+def _device_time(fn, name="", calls=100):
+    """Milliseconds per call of fn on the card alone (torch.profiler): the
+    summed time of the kernels whose name holds `name`, over `calls`
+    calls."""
+    for _ in range(3):          # the profiler now and then records no kernel
+        rows, _ = _profile(lambda: [fn() for _ in range(calls)])
+        mine = [r for r in rows if name in r[0]]
+        if mine:
+            return sum(r[1] for r in mine) / 1e3 / calls
+    return "not measured"
+
+
+def _cold_copies(nbytes):
+    """Copies of a call's inputs that, called in turn, pass three times
+    the L2 cache's size through it between two calls on the same copy,
+    so that each call reads its inputs from HBM; 0 where a call moves
+    under 1 MiB and its time is the launch's."""
+    return 0 if nbytes < 2 ** 20 else -(-3 * L2_BYTES // nbytes)
+
+
+def _in_turn(fns):
+    """One call of the next of `fns` at each call."""
+    turn = itertools.cycle(fns)
+    return lambda: next(turn)()
+
+
+def _bound(nbytes, flops, dtype):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def _host_split(alloc, c_call, launch, wrapper, reps):
+    """Where a wrapper's host time goes: the output's allocation, the
+    ctypes call with the CUDA launch in it, the raw stream and device
+    queries of `nvcc.launch` around it, and the rest (checks, counters,
+    Python calls)."""
+    t_alloc, t_call = _host_time(alloc, reps), _host_time(c_call, reps)
+    t_launch, t_wrap = _host_time(launch, reps), _host_time(wrapper, reps)
+    return dict(alloc_ms=t_alloc, c_call_ms=t_call,
+                stream_and_device_ms=t_launch - t_call,
+                checks_and_rest_ms=t_wrap - t_launch - t_alloc)
+
+
+def device_floor():
+    """The card's own time for a one-element `add_`: the least a kernel
+    launch takes on this card, and the floor of every device time below."""
     one = torch.zeros(1, device="cuda")
-    launch_floor = _time(lambda: one.add_(0), 2000)
+    floor = dict(launch_floor_ms=_time(lambda: one.add_(0), 2000),
+                 device_floor_ms=_device_time(lambda: one.add_(0)))
+    phase("device_floor", clocks=smi_line(CLOCKS), **floor)
+    return floor
+
+
+def time_kernel(floor):
+    cases = []
     for shape, K in (((151, 100), 1), ((151, 100), 60), ((1024, 1024), 1)):
         for dtype in (torch.float32, torch.float64):
             u, v, scal = _inputs(shape, K, dtype, seed=7)
             vv = v if K > 1 else v[0]
+            op = sh_jv_mod.sh_jv_operator(u, scal)     # the jac_op route
             reps = 2000 if shape == (151, 100) and K == 1 else 300
 
             def kern():
                 return sh_jv_mod.sh_jv(u, vv, scal)
 
+            def oper():
+                return op(vv)
+
             def plain():
                 return sh_jv_mod.sh_jv_plain(u, vv, scal)
 
-            # in turns: kernel, plain, kernel, plain
-            tk1, tp1 = _time(kern, reps), _time(plain, reps)
-            tk2, tp2 = _time(kern, reps), _time(plain, reps)
-            # the same calls' time on the card alone, from the profiler
-            krows, _ = _profile(lambda: [kern() for _ in range(100)])
-            prows, _ = _profile(lambda: [plain() for _ in range(100)])
-            kdev = [r for r in krows if "sh_jv_kernel" in r[0]]
+            # in turns: kernel, operator, plain, then again
+            tk1, to1, tp1 = _time(kern, reps), _time(oper, reps), \
+                _time(plain, reps)
+            tk2, to2, tp2 = _time(kern, reps), _time(oper, reps), \
+                _time(plain, reps)
             N, M = shape
-            nbytes = sh_jv_mod.sh_jv_bytes(N, M, K, u.element_size())
-            flops = sh_jv_mod.sh_jv_flops(N, M, K)
-            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-            t_ops = flops / PEAK_FLOPS[dtype] * 1e3
             case = dict(dtype=str(dtype).split(".")[-1],
                         shape=f"{N}x{M}", K=K, ms=(tk1 + tk2) / 2,
+                        operator_ms=(to1 + to2) / 2,
+                        host_ms=_host_time(kern, reps),
+                        operator_host_ms=_host_time(oper, reps),
+                        device_ms=_device_time(kern, "sh_jv_kernel"),
                         plain_ms=(tp1 + tp2) / 2,
-                        bound_ms=max(t_bytes, t_ops),
-                        bound_by="bytes" if t_bytes >= t_ops else "operations",
-                        launch_floor_ms=launch_floor,
-                        device_ms=(sum(r[1] for r in kdev) / 1e3
-                                   / sum(r[2] for r in kdev))
-                        if kdev else "not measured",
-                        plain_device_ms=sum(r[1] for r in prows) / 1e5
-                        if prows else "not measured",
+                        plain_device_ms=_device_time(plain),
+                        **_bound(sh_jv_mod.sh_jv_bytes(N, M, K,
+                                                       u.element_size()),
+                                 sh_jv_mod.sh_jv_flops(N, M, K), dtype),
+                        **floor,
                         library="none: no single PyTorch call computes SH J.v")
+            copies = _cold_copies(sh_jv_mod.sh_jv_bytes(N, M, K,
+                                                        u.element_size()))
+            if copies:
+                calls = []
+                for c in range(copies):
+                    uc, vc, sc = _inputs(shape, K, dtype, seed=100 + c)
+                    calls.append(functools.partial(
+                        sh_jv_mod.sh_jv, uc, vc if K > 1 else vc[0], sc))
+                case.update(cold_copies=copies, device_cold_ms=_device_time(
+                    _in_turn(calls), "sh_jv_kernel"))
+            if K == 1 and shape == (151, 100):
+                fn = sh_jv_mod._entry(dtype)
+                out = torch.empty_like(vv)
+                args = (u.data_ptr(), vv.data_ptr(), scal.data_ptr(),
+                        out.data_ptr(), N, M, 1)
+                stream = torch.cuda.current_stream().cuda_stream
+                case["operator_host_split"] = _host_split(
+                    lambda: torch.empty_like(vv), lambda: fn(*args, stream),
+                    lambda: nvcc.launch(fn, u.get_device(), *args), oper,
+                    reps)
             cases.append(case)
             phase("timing", **case)
     return cases
@@ -627,7 +795,7 @@ def _csr_of(A):
     return coo.coalesce().to_sparse_csr()
 
 
-def time_dia():
+def time_dia(floor):
     cases = []
     for n, offsets in ((2 * BRUSS_SITES, PATH_OFFSETS),
                        (1 << 20, (-1024, -1, 0, 1, 1024))):
@@ -652,29 +820,42 @@ def time_dia():
                 _time(library, reps)
             tk2, tp2, tl2 = _time(kern, reps), _time(plain, reps), \
                 _time(library, reps)
-            krows, _ = _profile(lambda: [kern() for _ in range(100)])
-            prows, _ = _profile(lambda: [plain() for _ in range(100)])
-            lrows, _ = _profile(lambda: [library() for _ in range(100)])
-            kdev = [r for r in krows if "dia_spmv_kernel" in r[0]]
-            nbytes = dia_spmv_bytes(n, offsets, 1, v.element_size())
-            flops = dia_spmv_flops(n, offsets, 1)
-            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-            t_ops = flops / PEAK_FLOPS[dtype] * 1e3
             case = dict(dtype=str(dtype).split(".")[-1], n=n,
                         offsets=list(offsets), K=1, ms=(tk1 + tk2) / 2,
+                        host_ms=_host_time(kern, reps),
+                        device_ms=_device_time(kern, "dia_spmv_kernel"),
                         plain_ms=(tp1 + tp2) / 2,
+                        plain_device_ms=_device_time(plain),
                         library_ms=(tl1 + tl2) / 2,
+                        library_host_ms=_host_time(library, reps),
+                        library_device_ms=_device_time(library),
                         library="cuSPARSE CSR SpMV (torch sparse_csr @ v)",
                         library_max_rel_err=lib_rel,
-                        bound_ms=max(t_bytes, t_ops),
-                        bound_by="bytes" if t_bytes >= t_ops else "operations",
-                        device_ms=(sum(r[1] for r in kdev) / 1e3
-                                   / sum(r[2] for r in kdev))
-                        if kdev else "not measured",
-                        plain_device_ms=sum(r[1] for r in prows) / 1e5
-                        if prows else "not measured",
-                        library_device_ms=sum(r[1] for r in lrows) / 1e5
-                        if lrows else "not measured")
+                        **_bound(dia_spmv_bytes(n, offsets, 1,
+                                                v.element_size()),
+                                 dia_spmv_flops(n, offsets, 1), dtype),
+                        **floor)
+            copies = _cold_copies(dia_spmv_bytes(n, offsets, 1,
+                                                 v.element_size()))
+            if copies:
+                kerns, libs = [], []
+                for c in range(copies):
+                    Ac, vc = _dia_inputs(n, offsets, 1, dtype, seed=100 + c)
+                    kerns.append(functools.partial(dia_spmv, Ac, vc))
+                    libs.append(functools.partial(torch.matmul, _csr_of(Ac),
+                                                  vc))
+                case.update(cold_copies=copies, device_cold_ms=_device_time(
+                    _in_turn(kerns), "dia_spmv_kernel"),
+                    library_device_cold_ms=_device_time(_in_turn(libs)))
+            if n == 2 * BRUSS_SITES:
+                fn, out = dia_entry(dtype), torch.empty_like(v)
+                args = (A.data.data_ptr(), _c_offsets(offsets)[1],
+                        len(offsets), v.data_ptr(), out.data_ptr(), n, 1)
+                stream = torch.cuda.current_stream().cuda_stream
+                case["host_split"] = _host_split(
+                    lambda: torch.empty_like(v), lambda: fn(*args, stream),
+                    lambda: nvcc.launch(fn, v.get_device(), *args), kern,
+                    reps)
             cases.append(case)
             phase("timing_dia", **case)
     return cases
@@ -683,14 +864,20 @@ def time_dia():
 def main():
     card = check_device()
     build()
-    max_abs_err = compare_kernel()
+    max_abs_err, compared_ks = compare_kernel()
     dia_abs_err = compare_dia()
-    prob, state, launches, steps_per_s = main_path(card)
+    prob, state, launches, by_batch, steps_per_s = main_path(card)
+    unchecked = sorted(set(by_batch) - compared_ks)
+    if unchecked:
+        raise AssertionError(f"the flagship launched sh_jv at K = "
+                             f"{unchecked}, which no compare case checks")
     dia_launches, bruss_seconds = brusselator_path(card)
     check_outputs(prob, state)
     check_bruss_small()
-    cases = time_kernel()
-    dia_cases = time_dia()
+    floor = device_floor()
+    cases = time_kernel(floor)
+    dia_cases = time_dia(floor)
+    phase("clocks_after_timing", clocks=smi_line(CLOCKS))
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
 
@@ -708,6 +895,11 @@ def main():
         "ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
         "library_ms": None,       # no single PyTorch call computes SH J.v
+        "host_ms": head["host_ms"], "operator_ms": head["operator_ms"],
+        "operator_host_ms": head["operator_host_ms"],
+        "device_ms": head["device_ms"],
+        "device_floor_ms": floor["device_floor_ms"],
+        "launches_by_batch": by_batch,
         "cases": cases,
     }, {
         "name": "dia_spmv", "route": "cuda",
@@ -717,6 +909,10 @@ def main():
         "ms": dhead["ms"], "plain_ms": dhead["plain_ms"],
         "bound_ms": dhead["bound_ms"], "bound_by": dhead["bound_by"],
         "library_ms": dhead["library_ms"],
+        "host_ms": dhead["host_ms"], "device_ms": dhead["device_ms"],
+        "device_floor_ms": floor["device_floor_ms"],
+        "library_host_ms": dhead["library_host_ms"],
+        "library_device_ms": dhead["library_device_ms"],
         "cases": dia_cases,
     }]
     DETAILS["kernels"] = kernels

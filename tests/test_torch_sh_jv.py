@@ -21,7 +21,8 @@ from bifurcationkit.jl_tpu import models as jmodels
 from bifurcationkit.jl_tpu.ops.pallas_sh import sh_jv_pallas, sh_jv_reference
 from bifurcationkit.jl_tpu_torch import interop
 from bifurcationkit.jl_tpu_torch import models as tmodels
-from bifurcationkit.jl_tpu_torch.ops.sh_jv import sh_jv, sh_jv_plain
+from bifurcationkit.jl_tpu_torch.ops.sh_jv import (sh_jv, sh_jv_operator,
+                                                   sh_jv_plain)
 
 RTOL = {np.float64: 1e-12, np.float32: 1e-5}
 
@@ -66,6 +67,10 @@ def test_plain_matches_jax_reference(shape, K, dtype):
     one = sh_jv(torch.as_tensor(u), torch.as_tensor(v[0]),
                 torch.as_tensor(scal))
     assert _rel(one.numpy(), ref[0]) < RTOL[dtype]
+    # the operator of the SH model's jac_op is the same map
+    op = sh_jv_operator(torch.as_tensor(u), torch.as_tensor(scal))
+    assert torch.equal(op(torch.as_tensor(v)), out)
+    assert sh_jv.launches == before
 
 
 def test_plain_matches_pallas_kernel_interpret():
@@ -93,8 +98,10 @@ def test_model_jv_matches_jvp_of_jax_residual():
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take():
-    """Off the CPU the wrapper validates before any launch (a `meta`
-    tensor stands in for a device tensor here)."""
+    """Off the CPU the wrapper and the operator validate before any
+    launch (a `meta` tensor stands in for a device tensor here)."""
     u = torch.empty((8, 4), device="meta")
     with pytest.raises(ValueError, match="must lie on"):
         sh_jv(u, u, torch.empty((4,), device="meta"))
+    with pytest.raises(ValueError, match="must lie on"):
+        sh_jv_operator(u, torch.empty((4,), device="meta"))
