@@ -2,7 +2,8 @@
 `bifurcationkit.jl_tpu`.
 
 Same layout and names as the JAX package (`core/`, `linalg/`, `newton.py`,
-`models/`, `ops/`, `continuation/`, `detection/`); plain PyTorch inside:
+`models/`, `ops/`, `continuation/`, `detection/`, `normal_forms/`,
+`codim2/`); plain PyTorch inside:
 functions on tensors, frozen dataclasses for solver configs, explicit
 `device=`/`dtype=` and explicit `torch.Generator`s.  The JAX package's
 Pallas kernels are CUDA C++ kernels for Hopper: the fused Swift-Hohenberg
@@ -51,15 +52,20 @@ from .linalg.bordered import (BorderingBLS, LSFromBLS, MatrixBLS,  # noqa: E402
                               MatrixFreeBLS)
 from .newton import (NonLinearSolution, cb_max_norm,  # noqa: E402
                      cb_max_norm_and_dp, newton)
-from .continuation import (Bordered, ContIterable, ContResult,  # noqa: E402
-                           ContState, Natural, PALC, Secant, continuation)
+from .continuation import (AutoSwitch, Bordered, Branch,  # noqa: E402
+                           ContIterable, ContResult, ContState, MoorePenrose,
+                           Multiple, Natural, PALC, Polynomial, Secant,
+                           continuation, merge_branches)
 from .detection import SpecialPoint  # noqa: E402
 from .ops import BSRMatrix, DIAMatrix, ELLMatrix, dia_spmv  # noqa: E402
+from .normal_forms import (BifDiagNode, bifurcationdiagram,  # noqa: E402
+                           continuation_from_bp, get_normal_form,
+                           hopf_normal_form, multicontinuation, predictor)
 
 __version__ = "0.1.0"
 
 _LAZY_SUBMODULES = ("models", "ops", "linalg", "detection", "continuation",
-                    "core", "interop")
+                    "normal_forms", "codim2", "core", "interop")
 
 
 def __getattr__(name):

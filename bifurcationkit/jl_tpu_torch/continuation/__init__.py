@@ -1,5 +1,6 @@
-from .algorithms import PALC, Natural
+from .algorithms import (PALC, AutoSwitch, MoorePenrose, MoorePenroseLS,
+                         Multiple, Natural)
 from .driver import continuation
 from .engine import ContIterable, ContState
-from .results import ContResult
-from .tangents import Bordered, Secant
+from .results import Branch, ContResult, merge_branches
+from .tangents import Bordered, Polynomial, Secant

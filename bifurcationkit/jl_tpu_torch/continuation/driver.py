@@ -1,7 +1,8 @@
 """Top-level `continuation` entry point (ref src/Continuation.jl:506-708) —
-the port of `jl_tpu/continuation/driver.py` (two-sided `bothside` runs
-come with `merge_branches`)."""
+the port of `jl_tpu/continuation/driver.py`."""
 from __future__ import annotations
+
+import dataclasses
 
 from typing import Callable, Optional
 
@@ -13,7 +14,7 @@ from ..detection.events import locate_event, update_event
 from ..detection.points import SpecialPoint
 from .algorithms import PALC
 from .engine import ContIterable
-from .results import ContResult
+from .results import ContResult, merge_branches
 
 
 def continuation(prob, alg=None, contparams: Optional[ContinuationPar] = None,
@@ -24,6 +25,7 @@ def continuation(prob, alg=None, contparams: Optional[ContinuationPar] = None,
                  event=None,
                  verbosity: int = 0,
                  kind: str = "EquilibriumCont",
+                 bothside: bool = False,
                  x0=None, params=None) -> ContResult:
     """Continue `F(u, p) = 0` in the problem's lens parameter.
 
@@ -33,11 +35,18 @@ def continuation(prob, alg=None, contparams: Optional[ContinuationPar] = None,
     alg = alg or PALC()
     contparams = contparams or ContinuationPar()
 
-    it = ContIterable(prob, alg, contparams, norm=norm,
-                      finalise_solution=finalise_solution,
-                      callback_newton=callback_newton, event=event,
-                      verbosity=verbosity, kind=kind)
-    return _continuation_loop(it, x0=x0, params=params)
+    def run(cp):
+        it = ContIterable(prob, alg, cp, norm=norm,
+                          finalise_solution=finalise_solution,
+                          callback_newton=callback_newton, event=event,
+                          verbosity=verbosity, kind=kind)
+        return _continuation_loop(it, x0=x0, params=params)
+
+    if bothside:
+        res_fw = run(contparams)
+        res_bw = run(dataclasses.replace(contparams, ds=-contparams.ds))
+        return merge_branches(res_fw, res_bw)
+    return run(contparams)
 
 
 def _continuation_loop(it: ContIterable, x0=None, params=None) -> ContResult:

@@ -16,11 +16,11 @@ import torch
 
 from .. import check_tf32_off
 from ..core.params import ContinuationPar
-from ..core.state import BorderedState, tree_axpy, tree_norm
-from .algorithms import PALC, Natural
+from ..core.state import BorderedState, ravel, tree_axpy, tree_norm
+from .algorithms import PALC, AutoSwitch, MoorePenrose, Multiple, Natural
 from .kernels import make_kernels
 from .results import ContResult
-from .tangents import Bordered, Secant
+from .tangents import Bordered, Polynomial, Secant
 
 
 @dataclasses.dataclass
@@ -76,12 +76,10 @@ class ContIterable:
                  verbosity: int = 0,
                  kind: str = "EquilibriumCont"):
         check_tf32_off()
-        if not isinstance(alg, (PALC, Natural)):
-            raise NotImplementedError(
-                f"{type(alg).__name__} is not ported yet; use PALC or Natural")
         self.prob = prob
         self.alg = alg
-        self.base_alg = alg
+        self.base_alg = (alg.alg if isinstance(alg, (AutoSwitch, Multiple))
+                         else alg)
         self.contparams = contparams
         self.norm = norm
         self.finalise_solution = finalise_solution
@@ -89,9 +87,12 @@ class ContIterable:
         self.event = event
         self.verbosity = verbosity
         self.kind = kind
-        self.kernels = make_kernels(prob, alg, contparams, norm,
+        self.kernels = make_kernels(prob, self.base_alg, contparams, norm,
                                     callback=callback_newton)
         self._kernels_by_nev = {self.kernels.nev: self.kernels}
+        # Polynomial tangent: arclengths and the (k, N+1) point buffer
+        self._poly_s = []
+        self._poly_rows = []
         # current (possibly updated along the branch) parameters; the
         # problem's update hook may replace them (ref update_problem!,
         # src/Continuation.jl:251)
@@ -179,9 +180,18 @@ class ContIterable:
         cp = self.contparams
         kn = self.kernels
         ds = state.ds
-        p_pred = state.p + ds * state.tau_p
+        tau_p = state.tau_p
+        p_pred = state.p + ds * tau_p
 
-        if isinstance(self.alg, Natural):
+        use_natural = isinstance(self.alg, Natural)
+        if isinstance(self.alg, AutoSwitch):
+            # AutoSwitch: shallow branch (param-dominated tangent) -> Natural,
+            # steep (fold-approaching, |tau_p| small) -> PALC
+            # (ref corrector! dispatch, src/continuation/AutoSwitch.jl:58-74)
+            use_natural = ((1.0 - kn.theta) * abs(tau_p) > self.alg.tol_param
+                           and not state.in_bisection)
+
+        if use_natural:
             p_new = float(np.clip(state.p + ds, cp.p_min, cp.p_max))
             u_new, cv, itn, itl, res = kn.newton_fixed(
                 state.z.u, kn.as_p(p_new), self._params())
@@ -194,6 +204,28 @@ class ContIterable:
             u_new, cv, itn, itl, res = kn.newton_fixed(
                 u_pred, kn.as_p(p_clamped), self._params())
             z_new = BorderedState(u=u_new, p=kn.as_p(p_clamped))
+        elif isinstance(self.base_alg, MoorePenrose):
+            z_pred = BorderedState(u=tree_axpy(ds, state.tau.u, state.z.u),
+                                   p=state.z.p + ds * state.tau.p)
+            z_new, tau_new, cv, itn, itl, res = kn.mp_corrector(
+                z_pred, state.z, state.tau, ds, self._params())
+            if cv:
+                state.tau = tau_new
+        elif isinstance(self.alg, Multiple):
+            # pmcont: try predictors at i*ds for i = nb..1, accept the first
+            # converged corrector (ref src/continuation/Multiple.jl:54-67);
+            # far predictors (i > 1) must show residual decay by factor
+            # alpha each Newton iteration or be abandoned early
+            for i in range(self.alg.nb, 0, -1):
+                dsi = ds * i
+                z_pred = BorderedState(
+                    u=tree_axpy(dsi, state.tau.u, state.z.u),
+                    p=state.z.p + dsi * state.tau.p)
+                decay = self.alg.alpha if i > 1 else np.inf
+                z_new, cv, itn, itl, res = kn.palc_corrector(
+                    z_pred, state.z, state.tau, dsi, self._params(), decay)
+                if cv:
+                    break
         elif self._can_fuse():
             # predictor + corrector + secant tangent + eig in one kernel call
             (z_new, tau_new, cv, itn, itl, res, vals, vecs,
@@ -215,16 +247,16 @@ class ContIterable:
             state.step += 1
             return state
         else:
-            z_pred = BorderedState(u=tree_axpy(ds, state.tau.u, state.z.u),
-                                   p=state.z.p + ds * state.tau.p)
             z_new, cv, itn, itl, res = kn.palc_corrector(
-                z_pred, state.z, state.tau, ds, self._params())
+                self._palc_predictor(state, ds), state.z, state.tau, ds,
+                self._params())
 
         state.converged, state.itnewton = cv, itn
         state.itlinear, state.res = itl, res
         if cv:
             state.z_old = state.z
             state.z = z_new
+            self._poly_push(state)
             if cp.compute_eigenelements:
                 self.compute_eig(state)
         if state.stepsizecontrol:
@@ -237,6 +269,49 @@ class ContIterable:
         """The fused step applies for plain PALC with the Secant tangent."""
         return (isinstance(self.alg, PALC)
                 and isinstance(getattr(self.alg, "tangent", None), Secant))
+
+    # ------------------------------------------------------------------
+    # predictors
+    # ------------------------------------------------------------------
+    def _palc_predictor(self, state: ContState, ds: float) -> BorderedState:
+        """Tangent predictor z + ds*tau, or polynomial extrapolation in
+        arclength when enough points are buffered (ref Polynomial,
+        src/continuation/Tangents.jl:126-233).  The point buffer and the
+        least-squares fit stay on the device."""
+        tangent = getattr(self.alg, "tangent", None)
+        if isinstance(tangent, Polynomial) and not state.in_bisection \
+                and len(self._poly_s) >= max(tangent.n + 2, 4):
+            ss = np.asarray(self._poly_s)
+            s0, sc = ss.mean(), max(ss.std(), 1e-12)
+            Z = torch.stack(self._poly_rows)                   # (k, N+1)
+            powers = torch.arange(tangent.n + 1, dtype=Z.dtype,
+                                  device=Z.device)
+            t = torch.as_tensor((ss - s0) / sc, dtype=Z.dtype,
+                                device=Z.device)
+            t_new = torch.as_tensor((ss[-1] + ds - s0) / sc, dtype=Z.dtype,
+                                    device=Z.device)
+            # masked Vandermonde least squares, (k, n+1)
+            A = t[:, None] ** powers[None, :]
+            G = A.T @ A + 1e-12 * torch.eye(tangent.n + 1, dtype=Z.dtype,
+                                            device=Z.device)
+            coef = torch.linalg.solve(G, A.T @ Z)               # (n+1, N+1)
+            z_flat = (t_new ** powers) @ coef
+            _, unravel = ravel(state.z.u)
+            return BorderedState(u=unravel(z_flat[:-1]), p=z_flat[-1])
+        return BorderedState(u=tree_axpy(ds, state.tau.u, state.z.u),
+                             p=state.z.p + ds * state.tau.p)
+
+    def _poly_push(self, state: ContState):
+        tangent = getattr(self.alg, "tangent", None)
+        if not isinstance(tangent, Polynomial) or state.in_bisection:
+            return
+        s_prev = self._poly_s[-1] if self._poly_s else 0.0
+        flat, _ = ravel(state.z.u)
+        self._poly_rows.append(torch.cat([flat, state.z.p.reshape(1)]))
+        self._poly_s.append(s_prev + abs(state.ds))
+        if len(self._poly_rows) > tangent.k:
+            self._poly_rows.pop(0)
+            self._poly_s.pop(0)
 
     # ------------------------------------------------------------------
     # step-size control (ref _step_size_control!, Contbase.jl:77-160)
@@ -265,6 +340,8 @@ class ContIterable:
     # ------------------------------------------------------------------
     def update_predictor(self, state: ContState):
         tangent = getattr(self.alg, "tangent", Secant())
+        if isinstance(self.base_alg, MoorePenrose):
+            return  # tangent updated inside the corrector
         if isinstance(tangent, Bordered) and state.converged:
             state.tau = self.kernels.bordered_tangent(
                 state.z, state.tau, self._params())

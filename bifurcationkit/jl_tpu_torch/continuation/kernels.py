@@ -25,6 +25,7 @@ from ..linalg.bordered import BorderingBLS
 from ..linalg.eig import (ArnoldiEig, DenseEig, FlatOperator, LOBPCGEig,
                           ShiftInvertEig)
 from ..linalg.linear import DenseLS, IterativeRefinement, PairedOperator
+from .algorithms import MoorePenrose, MoorePenroseLS
 
 
 def default_bls(alg, newton_opts):
@@ -159,7 +160,11 @@ def make_kernels(prob, alg, contparams: ContinuationPar,
     # PALC bordered-Newton corrector (ref newton_palc, Palc.jl:187-305)
     # ------------------------------------------------------------------
     def palc_corrector(z_pred: BorderedState, z0: BorderedState,
-                       tau: BorderedState, ds, params):
+                       tau: BorderedState, ds, params,
+                       decay_alpha=math.inf):
+        """decay_alpha < inf aborts Newton early unless the residual decays
+        by that factor each iteration — the pmcont predictor-acceptance
+        criterion (ref the Multiple callback, Multiple.jl:52-65)."""
         def full_res(u, p):
             rf = prob.residual(u, set_p(params, p))
             # theta <u - z0.u, tau.u>/n + (1-theta)(p - z0.p) tau.p - ds
@@ -169,14 +174,16 @@ def make_kernels(prob, alg, contparams: ContinuationPar,
 
         u, p = z_pred.u, as_p(z_pred.p)
         rf, rn, r = full_res(u, p)
-        k, itl, ok = 0, 0, True
-        while r > nopts.tol and k < nopts.max_iterations and ok:
+        k, itl, ok, r_prev = 0, 0, True, r
+        while r > nopts.tol and k < nopts.max_iterations and ok \
+                and (k < 1 or r <= decay_alpha * r_prev):
             par = set_p(params, p)
             dFdp = prob.dFdp(u, par)
             du, dp, _, itlin = bls(jac(u, par), dFdp, tau.u, tau.p, rf, rn,
                                    theta, 1.0 - theta, dotp=dotp)
             u = tree_sub(u, du)
             p = torch.clamp(p - dp, p_min, p_max)
+            r_prev = r
             rf, rn, r = full_res(u, p)
             if callback is not None:
                 ok = bool(callback({"x": u, "residual": rf,
@@ -185,6 +192,69 @@ def make_kernels(prob, alg, contparams: ContinuationPar,
             k += 1
             itl += int(itlin)
         return BorderedState(u=u, p=p), r <= nopts.tol, k, itl, r
+
+    # ------------------------------------------------------------------
+    # Moore-Penrose corrector (ref newton_moore_penrose, MoorePenrose.jl:129)
+    # Gauss-Newton on the extended system with the tangent as the extra row;
+    # the tangent itself is updated from the bordered solve each iteration.
+    # ------------------------------------------------------------------
+    def res_only(u, p, params):
+        rf = prob.residual(u, set_p(params, p))
+        return rf, float(norm(rf))
+
+    def mp_corrector(z_pred: BorderedState, z0: BorderedState,
+                     tau0: BorderedState, ds, params):
+        u, p, tu, tp = z_pred.u, as_p(z_pred.p), tau0.u, as_p(tau0.p)
+        rf, r = res_only(u, p, params)
+        k, itl = 0, 0
+        while r > nopts.tol and k < nopts.max_iterations:
+            par = set_p(params, p)
+            dFdp = prob.dFdp(u, par)
+            J = jac(u, par)
+            # solve [J dFdp; tau'][du; dp] = [rf; 0]
+            du, dp, _, itlin = bls(J, dFdp, tu, tp, rf, as_p(0.0), theta,
+                                   1.0 - theta, dotp=dotp)
+            # update tangent: solve [J dFdp; tau'][tu'; tp'] = [0; 1]
+            ntu, ntp, _, _ = bls(J, dFdp, tu, tp, tree_zeros_like(u),
+                                 as_p(1.0), theta, 1.0 - theta, dotp=dotp)
+            nrm = torch.sqrt(dotp(ntu, ntu) * theta
+                             + ntp * ntp * (1.0 - theta))
+            tu, tp = tree_scale(ntu, 1.0 / nrm), ntp / nrm
+            u = tree_sub(u, du)
+            p = torch.clamp(p - dp, p_min, p_max)
+            rf, r = res_only(u, p, params)
+            k += 1
+            itl += int(itlin)
+        return (BorderedState(u=u, p=p), BorderedState(u=tu, p=tp),
+                r <= nopts.tol, k, itl, r)
+
+    if isinstance(alg, MoorePenrose) and alg.method == MoorePenroseLS.pInv:
+        def mp_corrector(z_pred: BorderedState, z0: BorderedState,  # noqa: F811
+                         tau0: BorderedState, ds, params):
+            """pInv mode: least-norm update dz = pinv([J dFdp]) @ rf and
+            tangent = theta-normalized projection of the previous tangent
+            onto null([J dFdp]) (ref MoorePenrose pInv,
+            src/continuation/MoorePenrose.jl:23-127).  Requires a flat
+            tensor state and a dense jacobian."""
+            u, p = z_pred.u, as_p(z_pred.p)
+            t = torch.cat([tau0.u, as_p(tau0.p).reshape(1)])
+            rf, r = res_only(u, p, params)
+            k = 0
+            while r > nopts.tol and k < nopts.max_iterations:
+                par = set_p(params, p)
+                G = torch.cat([jac(u, par), prob.dFdp(u, par)[:, None]],
+                              dim=1)                        # (n, n+1)
+                Gp = torch.linalg.pinv(G)
+                dz = Gp @ rf
+                u = u - dz[:-1]
+                p = torch.clamp(p - dz[-1], p_min, p_max)
+                t = t - Gp @ (G @ t)           # project onto null(G)
+                t = t / torch.sqrt(dotp(t[:-1], t[:-1]) * theta
+                                   + t[-1] ** 2 * (1.0 - theta))
+                rf, r = res_only(u, p, params)
+                k += 1
+            return (BorderedState(u=u, p=p), BorderedState(u=t[:-1], p=t[-1]),
+                    r <= nopts.tol, k, k, r)
 
     # ------------------------------------------------------------------
     # tangents
@@ -306,6 +376,7 @@ def make_kernels(prob, alg, contparams: ContinuationPar,
     return SimpleNamespace(
         newton_fixed=newton_fixed,
         palc_corrector=palc_corrector,
+        mp_corrector=mp_corrector,
         palc_step=palc_step,
         secant_tangent=secant_tangent,
         bordered_tangent=bordered_tangent,
@@ -313,6 +384,7 @@ def make_kernels(prob, alg, contparams: ContinuationPar,
         as_p=as_p,
         n_state=n_state,
         nev=nev,
+        theta=theta,
     )
 
 

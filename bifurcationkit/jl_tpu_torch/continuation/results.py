@@ -1,6 +1,6 @@
 """Continuation results (ref src/Results.jl) — the port's copy of
-`jl_tpu/continuation/results.py` (`ContResult`; `Branch` and
-`merge_branches` come with two-sided continuation).
+`jl_tpu/continuation/results.py`: `ContResult`, the `Branch` of automatic
+branch switching and `merge_branches` for two-sided continuation.
 
 `ContResult` is the host-side branch table: per-step scalar records (a
 struct-of-arrays dict, the numpy analogue of the reference's StructArray,
@@ -124,3 +124,66 @@ class ContResult:
                          f"{sp.interval[1]:.8f}), step = {sp.step}, "
                          f"status = {sp.status}")
         return "\n".join(lines)
+
+
+@dataclasses.dataclass
+class Branch:
+    """A branch obtained from automatic branch switching: a ContResult plus
+    the special point it bifurcated from (ref `Branch`, src/Results.jl:354)."""
+
+    gamma: ContResult = None
+    bp: Any = None
+
+    def __getattr__(self, name):
+        return getattr(object.__getattribute__(self, "gamma"), name)
+
+    def __len__(self):
+        return len(self.gamma)
+
+    def __getitem__(self, key):
+        return self.gamma[key]
+
+
+def merge_branches(fw: ContResult, bw: ContResult) -> ContResult:
+    """Merge forward & backward runs for `bothside=True`
+    (ref `_merge`, src/Results.jl:398-498): the backward branch is reversed
+    and prepended; step indices are relabelled monotonically."""
+    out = ContResult(alg=fw.alg, prob=fw.prob, contparams=fw.contparams,
+                     kind=fw.kind)
+    nbw = len(bw)
+    # reversed backward part (drop its first record: duplicate of start point)
+    recs = list(reversed(bw._records))[:-1] + list(fw._records)
+    for i, r in enumerate(recs):
+        r = dict(r)
+        r["step"] = i
+        out._records.append(r)
+
+    def relabel(step, from_bw):
+        if from_bw:
+            return nbw - 1 - step if (nbw - 1 - step) >= 0 else 0
+        return nbw - 1 + step
+
+    for e in bw.eig:
+        if relabel(e["step"], True) < nbw - 1:
+            out.eig.append({**e, "step": relabel(e["step"], True)})
+    for e in fw.eig:
+        out.eig.append({**e, "step": relabel(e["step"], False)})
+    for s in bw.sol:
+        if relabel(s["step"], True) < nbw - 1:
+            out.sol.append({**s, "step": relabel(s["step"], True)})
+    for s in fw.sol:
+        out.sol.append({**s, "step": relabel(s["step"], False)})
+    for sp in bw.specialpoint:
+        if sp.type == "endpoint":
+            continue
+        sp2 = dataclasses.replace(sp)
+        sp2.step = relabel(sp.step, True)
+        sp2.idx = relabel(sp.idx, True)
+        out.specialpoint.append(sp2)
+    for sp in fw.specialpoint:
+        sp2 = dataclasses.replace(sp)
+        sp2.step = relabel(sp.step, False)
+        sp2.idx = relabel(sp.idx, False)
+        out.specialpoint.append(sp2)
+    out.specialpoint.sort(key=lambda s: s.step)
+    return out

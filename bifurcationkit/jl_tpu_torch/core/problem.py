@@ -74,6 +74,10 @@ class BifurcationProblem:
     def set_lens_param(self, params, value):
         return lens_set(params, self.lens, value)
 
+    @property
+    def param_value(self):
+        return self.get_lens_param(self.params)
+
     # --- jacobians -------------------------------------------------------
     def jacobian(self, u, params):
         """Dense jacobian as a 2-D tensor over the raveled state."""

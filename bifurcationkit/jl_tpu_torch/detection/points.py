@@ -1,6 +1,9 @@
 """Special (bifurcation) point records (ref src/BifurcationPoints.jl) —
-the port's own copy of `SpecialPoint` from `jl_tpu/detection/points.py`,
-the generic branch annotation (ref :22-93).
+the port's own copy of `jl_tpu/detection/points.py`.
+
+`SpecialPoint` is the generic branch annotation (ref :22-93); the typed
+bifurcation point classes carry normal-form data filled in by
+`get_normal_form` (ref :155-320).
 """
 from __future__ import annotations
 
@@ -46,3 +49,97 @@ def kernel_dimension(sp: SpecialPoint) -> int:
     """Dimension of the kernel of the jacobian at the point
     (ref src/BifurcationPoints.jl:101)."""
     return abs(sp.delta[0])
+
+
+# ---------------------------------------------------------------------------
+# Typed bifurcation points filled by normal-form computation
+# (ref src/BifurcationPoints.jl:155-398)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class BifPoint:
+    """Base for normal-form-annotated points."""
+
+    x0: Any = None          # solution at the point
+    p: float = 0.0          # parameter value
+    params: Any = None      # full parameter pytree at the point
+    lens: Any = None
+    zeta: Any = None        # right eigenvector(s) / kernel basis
+    zeta_star: Any = None   # left eigenvector(s)
+    nf: Any = None          # normal form coefficients
+    type: str = "none"
+    prob: Any = None
+
+
+@dataclasses.dataclass
+class BranchPoint(BifPoint):
+    type: str = "bp"
+
+
+@dataclasses.dataclass
+class Pitchfork(BifPoint):
+    type: str = "pitchfork"
+
+
+@dataclasses.dataclass
+class Transcritical(BifPoint):
+    type: str = "transcritical"
+
+
+@dataclasses.dataclass
+class Fold(BifPoint):
+    type: str = "fold"
+
+
+@dataclasses.dataclass
+class NdBranchPoint(BifPoint):
+    type: str = "nd"
+
+
+@dataclasses.dataclass
+class Hopf(BifPoint):
+    type: str = "hopf"
+    omega: float = 0.0      # imaginary part of the eigenvalue
+
+
+@dataclasses.dataclass
+class PeriodDoubling(BifPoint):
+    type: str = "pd"
+
+
+@dataclasses.dataclass
+class NeimarkSacker(BifPoint):
+    type: str = "ns"
+    omega: float = 0.0
+
+
+# codim-2 points (ref src/BifurcationPoints.jl:254-398)
+@dataclasses.dataclass
+class Cusp(BifPoint):
+    type: str = "cusp"
+
+
+@dataclasses.dataclass
+class BogdanovTakens(BifPoint):
+    type: str = "bt"
+    nfsupp: Any = None      # extra coefficients for predictors
+
+
+@dataclasses.dataclass
+class Bautin(BifPoint):
+    type: str = "gh"
+    omega: float = 0.0
+
+
+@dataclasses.dataclass
+class ZeroHopf(BifPoint):
+    type: str = "zh"
+    omega: float = 0.0
+
+
+@dataclasses.dataclass
+class HopfHopf(BifPoint):
+    type: str = "hh"
+    omega1: float = 0.0
+    omega2: float = 0.0

@@ -44,3 +44,29 @@ def branch_to_numpy(br) -> Dict[str, np.ndarray]:
         "sp_p": np.asarray([float(sp.param) for sp in br.specialpoint],
                            dtype=float),
     }
+
+
+def _to_numpy(a):
+    """A tensor, an array of either package or a number as numpy; lists
+    (the Nd kernel bases) stack as columns."""
+    if isinstance(a, (list, tuple)):
+        return np.stack([_to_numpy(x) for x in a], axis=1)
+    if isinstance(a, torch.Tensor):
+        return a.detach().cpu().numpy()
+    return np.asarray(a)
+
+
+def normal_form_to_numpy(nf) -> Dict[str, Any]:
+    """A normal-form point of either package (`Pitchfork`, `Hopf`,
+    `NdBranchPoint`, ...) as numpy: its type name `kind`, the `nf` dict's
+    scalars (Python numbers, complex for Hopf) and arrays, `zeta`,
+    `zeta_star`, `p` and, for Hopf points, `omega`."""
+    coef = {}
+    for k, v in nf.nf.items():
+        arr = _to_numpy(v)
+        coef[k] = arr.item() if arr.ndim == 0 else arr
+    out = {"kind": type(nf).__name__, "nf": coef, "zeta": _to_numpy(nf.zeta),
+           "zeta_star": _to_numpy(nf.zeta_star), "p": float(nf.p)}
+    if hasattr(nf, "omega"):
+        out["omega"] = float(nf.omega)
+    return out

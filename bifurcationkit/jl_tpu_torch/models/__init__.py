@@ -1,3 +1,3 @@
 from .equilibria import (brusselator_1d, carrier, chan, hopf_normal_2d,
                          pitchfork_1d, transcritical_1d)
-from .sh import swift_hohenberg_2d
+from .sh import mittelmann, swift_hohenberg_2d

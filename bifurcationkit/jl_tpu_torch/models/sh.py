@@ -1,7 +1,9 @@
 """Swift-Hohenberg SH2d-fronts — the port of `jl_tpu/models/sh.py::
 swift_hohenberg_2d` (ref examples/SH2d-fronts.jl:8-60), the flagship
-matrix-free PDE workload.  Its J.v is the hand-written CUDA kernel
-(`ops/sh_jv.py`) through the problem's `jac_op` hook."""
+matrix-free PDE workload, whose J.v is the hand-written CUDA kernel
+(`ops/sh_jv.py`) through the problem's `jac_op` hook; and Mittelmann's
+Gelfand-Bratu problem (`mittelmann`, ref examples/mittleman.jl), the
+square-domain showcase of Nd branch points."""
 from __future__ import annotations
 
 import functools
@@ -111,8 +113,10 @@ def swift_hohenberg_2d(Nx: int = 151, Ny: int = 100, lx: float = 8 * np.pi,
         batch (K, Nx, Ny).  u and the scalars are checked once here, at
         the linearisation point, not at every product."""
         dt = u.dtype
-        lnu = torch.stack([torch.as_tensor(par["l"], device=dev),
-                           torch.as_tensor(par["nu"], device=dev)]).to(dt)
+        # a parameter may be a Python float (the normal forms set the lens
+        # to the point's p): made at u's dtype, not at torch's default f32
+        lnu = torch.stack([torch.as_tensor(par["l"], dtype=dt, device=dev),
+                           torch.as_tensor(par["nu"], dtype=dt, device=dev)])
         op = sh_jv_operator(u.contiguous(), torch.cat([lnu, inv_h2.to(dt)]))
         return lambda v: op(v.contiguous())
 
@@ -154,3 +158,43 @@ def swift_hohenberg_2d(Nx: int = 151, Ny: int = 100, lx: float = 8 * np.pi,
 
     object.__setattr__(prob, "spectral_precond", precond)
     return prob
+
+
+def mittelmann(Nx: int = 30, Ny: int = 30, lx: float = 0.5, ly: float = 0.5,
+               lam: float = 0.01, device=None,
+               dtype: torch.dtype = DEFAULT_DTYPE):
+    """Mittelmann's 2D Gelfand-Bratu problem (ref examples/mittleman.jl:14-82):
+    F(u) = Delta u - 10 (u - lam e^u) with the modified-corner Neumann
+    Laplacian on [-lx,lx] x [-ly,ly].  The square's symmetry makes the
+    branch points 2d — the reference's showcase for Nd normal forms,
+    `multicontinuation` and automatic bifurcation diagrams.
+
+    The state is the (Nx, Ny) field; `record_from_solution` gives the
+    reference's symmetry-breaking weighted norm `nw` (ref mittleman.jl:7,73)
+    so distinct sheets separate in diagram plots.  `device=None` means the
+    card; pass `device="cpu"` to run on the CPU."""
+    dev = resolve_device(device)
+    hx2 = float((2 * lx / Nx) ** 2)
+    hy2 = float((2 * ly / Ny) ** 2)
+
+    def F(u, par):
+        lap = lap_neumann(u, hx2, -2) + lap_neumann(u, hy2, -1)
+        return lap - 10.0 * (u - par["lam"] * torch.exp(u))
+
+    X = np.linspace(-lx, lx, Nx)
+    Y = np.linspace(-ly, ly, Ny)
+    w = (lx + X)[:, None] * Y[None, :]
+    w = torch.as_tensor(w - w.min(), dtype=dtype, device=dev).reshape(-1)
+
+    def record(x, p, **k):
+        flat = x.reshape(-1)
+        return {"param": p,
+                "nw": torch.linalg.vector_norm(flat * w)
+                / math.sqrt(flat.shape[0]),
+                "norm": torch.linalg.vector_norm(flat),
+                "n_inf": torch.max(torch.abs(flat))}
+
+    return BifurcationProblem(
+        F, u0=torch.zeros((Nx, Ny), dtype=dtype, device=dev),
+        params={"lam": torch.tensor(lam, dtype=dtype, device=dev)},
+        lens="lam", record_from_solution=record)

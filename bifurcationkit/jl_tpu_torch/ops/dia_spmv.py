@@ -14,6 +14,10 @@ on the card the kernel is the path for every CUDA tensor.  A CPU tensor
 takes the plain version; a CUDA tensor launches the kernel or raises.
 The kernel is built at first use with `nvcc` (`ops/nvcc.py`).
 
+The kernel computes values only: a CUDA `data` or v that carries a
+derivative (requires grad, a `torch.func` transform, a forward-mode
+tangent) is refused rather than having its derivative dropped.
+
 The launch path is lean and keeps no state on the matrix: each product
 checks `data` and v by attribute compares (the full checks, with their
 messages, run only when one fails), takes the entry point for the dtype
@@ -69,9 +73,11 @@ def dia_spmv(A, v: torch.Tensor) -> torch.Tensor:
     dtype = data.dtype
     if not (data.is_cuda and v.device == data.device and v.dtype is dtype
             and dtype in _DTYPES and v.is_contiguous()
-            and data.is_contiguous()):
-        nvcc.check_operand("dia_spmv", "data", data, data, "data")
-        nvcc.check_operand("dia_spmv", "v", v, data, "data")
+            and data.is_contiguous()) or data.requires_grad \
+            or v.requires_grad or nvcc.autodiff_active():
+        for name, t in (("data", data), ("v", v)):
+            nvcc.check_no_derivative("dia_spmv", name, t)
+            nvcc.check_operand("dia_spmv", name, t, data, "data")
     ndiag, dshape, shape = len(offsets), data.shape, v.shape
     if len(dshape) != 2 or dshape[0] != ndiag:
         raise ValueError(f"dia_spmv: data must be (ndiag, n) with ndiag "

@@ -22,6 +22,7 @@ from pathlib import Path
 from typing import Dict, List, Sequence
 
 import torch
+import torch.autograd.forward_ad as fwAD
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -104,6 +105,40 @@ def check_operand(kernel: str, name: str, t: torch.Tensor,
                         f"match {ref_name} ({ref.dtype}), got {t.dtype}")
     if not t.is_contiguous():
         raise ValueError(f"{kernel}: {name} must be contiguous")
+
+
+_is_wrapped = torch._C._functorch.is_functorch_wrapped_tensor
+_func_level = torch._C._functorch.maybe_current_level
+
+
+def autodiff_active() -> bool:
+    """Whether a `torch.func` transform or a forward-mode dual level is
+    active: only then can a tensor that does not require grad carry a
+    derivative.  One cheap query per product; `carries_derivative` then
+    decides per tensor."""
+    return _func_level() is not None or fwAD._current_level >= 0
+
+
+def carries_derivative(t: torch.Tensor) -> bool:
+    """Whether `t` takes part in automatic differentiation: it requires
+    grad, it is wrapped by a `torch.func` transform (a jvp, vjp or vmap in
+    progress), or it carries a forward-mode tangent of the active dual
+    level.  A kernel reads raw memory and would drop the derivative."""
+    if t.requires_grad or _is_wrapped(t):
+        return True
+    return (fwAD._current_level >= 0
+            and fwAD.unpack_dual(t).tangent is not None)
+
+
+def check_no_derivative(kernel: str, name: str, t: torch.Tensor):
+    """Refuse a tensor that carries a derivative (`carries_derivative`):
+    the kernel computes values only, so the derivative would be lost
+    silently.  Differentiate the plain version (a CPU tensor) or F."""
+    if carries_derivative(t):
+        raise ValueError(
+            f"{kernel}: {name} carries a derivative (requires grad, a "
+            f"torch.func transform, or a forward-mode tangent); the CUDA "
+            f"kernel computes values only and would drop it")
 
 
 def launch(fn, index: int, *args) -> int:

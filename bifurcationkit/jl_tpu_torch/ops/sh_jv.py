@@ -23,6 +23,12 @@ binds the entry point once per linearisation point (the SH model's
 `jac_op` builds one per point), and each product then checks only v by
 attribute compares, allocates the output and launches.  `sh_jv` called
 directly checks everything on every call.
+
+The kernel computes values only.  A CUDA operand that carries a derivative
+(requires grad, is wrapped by a `torch.func` transform, or has a
+forward-mode tangent) is refused, so a derivative through the kernel
+never drops to zero silently; differentiate F, or the plain version on
+the CPU, instead.
 """
 from __future__ import annotations
 
@@ -49,6 +55,7 @@ def _entry(dtype: torch.dtype):
 def _card_operator(u: torch.Tensor, scal: torch.Tensor):
     """v -> J v through the kernel, with u and scal checked here once."""
     for name, t in (("u", u), ("scal", scal)):
+        nvcc.check_no_derivative("sh_jv", name, t)
         nvcc.check_operand("sh_jv", name, t, u, "u")
     if u.dim() != 2 or min(u.shape) < 1:
         raise ValueError(f"sh_jv: u must be a non-empty (N, M) field, got "
@@ -63,7 +70,9 @@ def _card_operator(u: torch.Tensor, scal: torch.Tensor):
 
     def op(v: torch.Tensor) -> torch.Tensor:
         if v.device != device or v.dtype is not dtype \
-                or not v.is_contiguous():
+                or not v.is_contiguous() or v.requires_grad \
+                or nvcc.autodiff_active():
+            nvcc.check_no_derivative("sh_jv", "v", v)
             nvcc.check_operand("sh_jv", "v", v, u, "u")
         shape = v.shape
         if shape == field:

@@ -23,16 +23,31 @@ Phases, one line each (a failing phase raises and the script exits non-zero):
    and read just after:
    a. the SH2d-fronts flagship at 151x100 — Newton, then PALC through
       `ContIterable` (2 warm-up + 6 timed steps) and `continuation()` with
-      bifurcation detection — and one profiled step (busy time, idle
-      share, longest kernels); the `sh_jv` launches split by batch size;
-   b. the Brusselator at 128 sites (256 unknowns) with its jacobian as a
+      bifurcation detection up to the step just past the branch's first
+      branch point (FLAGSHIP_BP_STEPS) — and one profiled step (busy
+      time, idle share, longest kernels); the `sh_jv` launches split by
+      batch size;
+   b. `flagship_bp`: the matrix-free normal form at that branch point
+      (examples/sh2d_fronts.py:106-131) through the kernel — its type,
+      coefficients, seconds, `sh_jv` launches by batch size and GMRES
+      iterations per bordered solve — held against the same normal form
+      with J.v through the plain version to 1e-8; then branch switching
+      there with the example's parameters (`multicontinuation` where the
+      kernel is 2d), every step converged to |F| <= 1e-7 and the first
+      point off the primary branch;
+   c. the Brusselator at 128 sites (256 unknowns) with its jacobian as a
       five-diagonal `DIAMatrix` — Newton from a perturbed guess, then PALC
       with GMRES and shift-invert Arnoldi sweeps that detect and bisect
       the Hopf point (at l = 0.5103642674 to 1e-8), with `p_max` cut just
       past it — and one profiled step;
+   d. `bruss_hopf_nf`: the Hopf normal form there, matrix-free through
+      the DIA kernel, dense, and matrix-free on the CPU from the same
+      point: a and b card against CPU to 1e-8, omega to 1e-9, one subtype,
+      a finite period;
 5. check: the flagship's last point is a finite root of F, a 60x40 SH
    branch and a 32-site Brusselator branch on the card match the same
-   branches on the CPU;
+   branches on the CPU, and the matrix-free normal form at the 60x40
+   branch's first bp on the card matches the CPU's to 1e-8;
 6. timing: each kernel, its plain version and its bound at the main
    paths' shapes: the wrapper's time (CUDA events over back-to-back
    calls), its host time per call (the host clock over calls with no
@@ -71,6 +86,7 @@ from bifurcationkit.jl_tpu_torch import interop, models  # noqa: E402
 from bifurcationkit.jl_tpu_torch.continuation.engine import (  # noqa: E402
     ContIterable)
 from bifurcationkit.jl_tpu_torch.core.state import BorderedState  # noqa: E402
+from bifurcationkit.jl_tpu_torch.linalg import linear  # noqa: E402
 from bifurcationkit.jl_tpu_torch.ops import (  # noqa: E402
     DIAMatrix, dia_spmv, nvcc)
 from bifurcationkit.jl_tpu_torch.ops import sh_jv as sh_jv_mod  # noqa: E402
@@ -85,6 +101,13 @@ L2_BYTES = 50 * 2 ** 20    # the H100 SXM's L2 cache
 PEAK_FLOPS = {torch.float64: 34e12, torch.float32: 67e12}
 TOL = {torch.float64: 1e-12, torch.float32: 1e-5}
 NEWTON_TOL = 1e-7          # the continuation's Newton tolerance
+# the step just past the flagship branch's first branch point, a 2d one
+# at l = -0.2155085 on the H100; the example runs at most 60 steps
+# (examples/sh2d_fronts.py)
+FLAGSHIP_BP_STEPS = 11
+NF_KEYS = ("a01", "b11", "b20", "b30")
+NF_INDICES = {"a01": 1, "b11": 2, "b20": 3, "b30": 4}
+NF_RTOL = 1e-8             # normal-form coefficients, relative to max(|c|, 1)
 OUT_DIR = os.path.join(ROOT, "chiprun_out")
 
 DETAILS = {}
@@ -296,7 +319,7 @@ def flagship_config(prob, max_steps):
     return ls, cp
 
 
-def main_path(card, warmup=2, timed=6, detect_steps=6):
+def main_path(card, warmup=2, timed=6, detect_steps=FLAGSHIP_BP_STEPS):
     reset_launches()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -348,6 +371,9 @@ def main_path(card, warmup=2, timed=6, detect_steps=6):
           special=[(str(t), float(p)) for t, p in
                    zip(branch["sp_type"], branch["sp_p"])],
           seconds=round(time.perf_counter() - t1, 3))
+    if not any(sp.type in ("bp", "nd") for sp in br.specialpoint):
+        raise AssertionError(f"the flagship met no branch point in "
+                             f"{detect_steps} steps")
     launches = sh_jv_mod.sh_jv.launches
     by_batch = dict(sorted(sh_jv_mod.sh_jv.launches_by_batch.items()))
     if launches <= 0:
@@ -356,7 +382,7 @@ def main_path(card, warmup=2, timed=6, detect_steps=6):
           sh_jv_launches=launches, sh_jv_launches_by_batch=by_batch,
           peak_mib=torch.cuda.max_memory_allocated() / 2 ** 20,
           card=repr(card))
-    return prob, state, launches, by_batch, steps_per_s
+    return prob, ls, br, state, launches, by_batch, steps_per_s
 
 
 def _kernel_rows(prof):
@@ -547,7 +573,7 @@ def brusselator_path(card):
         raise AssertionError("the Brusselator path never launched the "
                              "dia_spmv kernel")
     bruss_breakdown(prob.re_make(u0=sol.u), cp)
-    return launches, seconds
+    return launches, seconds, prob, br
 
 
 def bruss_breakdown(prob, cp, unprofiled=2):
@@ -583,12 +609,12 @@ def check_outputs(prob, state):
     # the same small branch on the card and on the CPU (plain J.v)
     kw = dict(Nx=60, Ny=40, lx=8 * np.pi * 60 / 151,
               ly=4 * np.pi / np.sqrt(3) * 40 / 100)
-    rows = {}
+    rows, branches = {}, {}
     for dev in ("cuda", "cpu"):
         p = models.swift_hohenberg_2d(device=dev, **kw)
         _, cp = flagship_config(p, 2)
-        rows[dev] = interop.branch_to_numpy(
-            bk.continuation(p, bk.PALC(), cp))
+        branches[dev] = bk.continuation(p, bk.PALC(), cp)
+        rows[dev] = interop.branch_to_numpy(branches[dev])
     dp = float(np.abs(rows["cuda"]["p"] - rows["cpu"]["p"]).max())
     same_n = bool(np.array_equal(rows["cuda"]["n_unstable"],
                                  rows["cpu"]["n_unstable"]))
@@ -598,6 +624,7 @@ def check_outputs(prob, state):
           special=[str(t) for t in rows["cuda"]["sp_type"]])
     if not (dp < 1e-8 and same_n and same_sp):
         raise AssertionError("60x40 branch on the card disagrees with the CPU")
+    return branches
 
 
 def check_bruss_small(n=32):
@@ -624,6 +651,293 @@ def check_bruss_small(n=32):
             and "hopf" in list(rows["cuda"]["sp_type"])):
         raise AssertionError("32-site Brusselator branch on the card "
                              "disagrees with the CPU")
+
+
+# ---------------------------------------------------------------------------
+# 4c. normal forms and branch switching on both paths
+# ---------------------------------------------------------------------------
+
+class GmresLog:
+    """Counts the port's GMRES solves by system size while active: the
+    matvecs of each solve (`linalg/linear.py::_gmres_flat`)."""
+
+    def __init__(self):
+        self.solves = {}
+
+    def __enter__(self):
+        self._orig = linear._gmres_flat
+
+        def logged(matvec, b, *args):
+            out = self._orig(matvec, b, *args)
+            self.solves.setdefault(int(b.shape[0]), []).append(int(out[2]))
+            return out
+
+        linear._gmres_flat = logged
+        return self
+
+    def __exit__(self, *exc):
+        linear._gmres_flat = self._orig
+
+    def summary(self, n):
+        """Per system size (n + k: bordered with k borders; 2n + 2:
+        bordered, complex; n and 2n: the Hopf form's plain solves): the
+        solves and their iterations."""
+        names = {n: "plain_n", 2 * n: "plain_2n",
+                 2 * n + 2: "bordered_2n+2"}
+        names.update({n + k: f"bordered_n+{k}" for k in range(1, 5)})
+        return {names.get(k, str(k)): dict(
+            solves=len(v), iterations=v, mean=float(np.mean(v)))
+            for k, v in sorted(self.solves.items())}
+
+
+def _rel_gap(a, b):
+    return abs(a - b) / max(abs(a), abs(b), 1.0)
+
+
+def _nf_gaps(nf_a, nf_b):
+    """Largest gap of each normal-form coefficient of two forms at one
+    point, relative to max(max |c|, 1), in nf_a's kernel basis.  With
+    zeta_b = zeta_a Q (Q = -1 or 1 in 1d) and zeta*_b = zeta*_a Q^-T, the
+    reduced equation's output index maps back with Q and each input index
+    with Q^-T."""
+    a, b = interop.normal_form_to_numpy(nf_a), interop.normal_form_to_numpy(
+        nf_b)
+    Za = a["zeta"].reshape(len(a["zeta"]), -1)
+    Q = np.linalg.pinv(Za) @ b["zeta"].reshape(len(b["zeta"]), -1)
+    maps = [Q] + [np.linalg.inv(Q).T] * 3
+    gaps = {}
+    for k in NF_KEYS:
+        shape = (len(Q),) * NF_INDICES[k]
+        ca = np.reshape(a["nf"][k], shape)
+        cb = np.reshape(b["nf"][k], shape)
+        for M in maps[:NF_INDICES[k]]:
+            # map the leading index and move it last: after every index,
+            # the order is back
+            cb = np.moveaxis(np.tensordot(M, cb, axes=([1], [0])), 0, -1)
+        gaps[k] = float(np.max(np.abs(ca - cb)) / max(np.abs(ca).max(), 1.0))
+    return gaps
+
+
+def flagship_plain_jac_op(Nx=151, Ny=100, lx=8 * np.pi,
+                          ly=2 * 2 * np.pi / np.sqrt(3)):
+    """The flagship's J.v through the plain PyTorch version, not the
+    kernel: the independent route the card's normal form is held against."""
+    inv_h2 = [1.0 / (2 * lx / Nx) ** 2, 1.0 / (2 * ly / Ny) ** 2]
+
+    def jac_op(u, par):
+        dt = u.dtype
+        scal = torch.stack([torch.as_tensor(par["l"], dtype=dt,
+                                            device=u.device),
+                            torch.as_tensor(par["nu"], dtype=dt,
+                                            device=u.device)])
+        scal = torch.cat([scal, torch.tensor(inv_h2, dtype=dt,
+                                             device=u.device)])
+        return lambda v: sh_jv_mod.sh_jv_plain(u, v, scal)
+
+    return jac_op
+
+
+def _abs_checks(prob, nf, branch, preds, max_steps):
+    """The checks of one switched branch: every step converged with
+    |F| <= NEWTON_TOL, and its first point lies off the primary branch —
+    its offset from the branch point along the kernel, <x1 - x_bp, zeta*>
+    (a vector for an Nd point), at least half the amplitude of the
+    predictor it started from (the one nearest to it)."""
+    sols = branch.gamma.sol
+    res = [float(torch.linalg.vector_norm(prob.F(
+        s_["x"], prob.set_lens_param(prob.params, s_["p"])))) for s_ in sols]
+    zstar = nf.zeta_star if isinstance(nf.zeta_star, list) \
+        else [nf.zeta_star]
+    dx = sols[0]["x"].reshape(-1) - nf.x0
+    offset = float(torch.linalg.vector_norm(torch.stack(
+        [torch.dot(dx, z) for z in zstar])))
+    pred = min(preds, key=lambda q: float(torch.linalg.vector_norm(
+        sols[0]["x"].reshape(-1) - q["x1"])))
+    amp = float(np.linalg.norm(np.atleast_1d(pred["amp"])))
+    steps = len(branch.gamma) - 1
+    fields = dict(steps=steps, p=[float(x) for x in branch.param],
+                  residuals=res, offset=offset, amp=amp,
+                  predictor_p=float(pred["p"]))
+    if steps != max_steps:
+        raise AssertionError(f"an aBS step failed: {steps} of {max_steps} "
+                             f"converged ({fields})")
+    if not max(res) <= NEWTON_TOL:
+        raise AssertionError(f"aBS residuals above {NEWTON_TOL}: {res}")
+    if not offset >= 0.5 * amp:
+        raise AssertionError(f"the first aBS point lies on the primary "
+                             f"branch: offset {offset} < amp/2 = {amp / 2}")
+    return fields
+
+
+def flagship_bp(card, prob, ls, br, **domain):
+    """The flagship's branch-point leg (examples/sh2d_fronts.py:106-131):
+    the matrix-free normal form at the branch's first branch point through
+    the kernel, the same through the plain J.v, and branch switching there
+    (`multicontinuation` where the kernel is 2d or more, as a user would)."""
+    idx = next(i for i, sp in enumerate(br.specialpoint)
+               if sp.type in ("bp", "nd"))
+    sp = br.specialpoint[idx]
+    n = prob.u0.numel()
+    reset_launches()
+    t0 = time.perf_counter()
+    with GmresLog() as log:
+        nf = bk.get_normal_form(br, idx, matrix_free=True)
+        torch.cuda.synchronize()
+    nf_s = time.perf_counter() - t0
+    nf_launches = sh_jv_mod.sh_jv.launches
+    nf_by_batch = dict(sorted(sh_jv_mod.sh_jv.launches_by_batch.items()))
+    coef = {k: (v if np.ndim(v) == 0 else np.round(v, 10).tolist())
+            for k, v in interop.normal_form_to_numpy(nf)["nf"].items()
+            if k in NF_KEYS + ("a02",)}
+    phase("flagship_nf", point=idx, step=sp.step, type=type(nf).__name__,
+          p=sp.param, delta=sp.delta, **coef, seconds=nf_s,
+          sh_jv_launches=nf_launches, sh_jv_launches_by_batch=nf_by_batch,
+          gmres=log.summary(n), card=repr(card))
+    if nf_launches <= 0:
+        raise AssertionError("the flagship normal form never launched sh_jv")
+
+    # the same normal form with J.v through the plain version: a kernel
+    # that is wrong on these call patterns (or a lost parameter tangent)
+    # shows here
+    t1 = time.perf_counter()
+    plain = prob.re_make(jac_op=flagship_plain_jac_op(**domain))
+    nf_plain = bk.get_normal_form(br, idx, prob=plain, matrix_free=True)
+    torch.cuda.synchronize()
+    gaps = _nf_gaps(nf, nf_plain)
+    phase("flagship_nf_plain", seconds=time.perf_counter() - t1,
+          type=type(nf_plain).__name__, max_rel_gap=max(gaps.values()),
+          **{f"gap_{k}": v for k, v in gaps.items()}, rtol=NF_RTOL)
+    if not (max(gaps.values()) <= NF_RTOL and type(nf_plain) is type(nf)):
+        raise AssertionError(f"the flagship normal form through sh_jv "
+                             f"differs from the plain J.v's: {gaps}")
+
+    # branch switching with the example's parameters
+    ds = -0.003
+    cp_abs = bk.ContinuationPar(
+        ds=-0.004, dsmax=0.01, dsmin=1e-7, p_min=-0.8, p_max=0.2,
+        max_steps=6, detect_bifurcation=0, detect_fold=False,
+        newton_options=bk.NewtonPar(tol=NEWTON_TOL, max_iterations=20,
+                                    linsolver=ls))
+    nd = type(nf).__name__ == "NdBranchPoint"
+    stamps = []
+
+    def stamp(*args, **kwargs):
+        """`finalise_solution` hook: the time each converged step ends."""
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+
+    t2 = time.perf_counter()
+    if nd:
+        preds = bk.normal_forms.nd_branch_predictors(nf, ds)
+        _, branches = bk.multicontinuation(
+            br, idx, cp_abs, delta_p=ds, nf_kwargs={"matrix_free": True},
+            finalise_solution=stamp)
+    else:
+        preds = [bk.predictor(nf, ds)]
+        branches = [bk.continuation_from_bp(
+            br, idx, cp_abs, delta_p=ds, nf_kwargs={"matrix_free": True},
+            finalise_solution=stamp)]
+    torch.cuda.synchronize()
+    abs_s = time.perf_counter() - t2
+    # the steps of each branch after its first: the intervals between the
+    # hook's calls within a branch (a branch's steps are consecutive)
+    per_branch = max(len(stamps) // max(len(branches), 1), 1)
+    step_s = [b - a for i, (a, b) in enumerate(zip(stamps, stamps[1:]))
+              if (i + 1) % per_branch]
+    phase("flagship_abs_predictors", count=len(preds),
+          p=[float(q["p"]) for q in preds],
+          amp=[np.round(np.atleast_1d(q["amp"]), 8).tolist() for q in preds],
+          branches=len(branches))
+    if not branches:
+        raise AssertionError("branch switching gave no branch")
+    steps = 0
+    for b in branches:
+        fields = _abs_checks(prob, nf, b, preds, cp_abs.max_steps)
+        steps += fields["steps"]
+        phase("flagship_abs", **fields)
+    launches = sh_jv_mod.sh_jv.launches
+    by_batch = dict(sorted(sh_jv_mod.sh_jv.launches_by_batch.items()))
+    phase("flagship_bp", abs_seconds=abs_s, abs_steps=steps,
+          abs_step_seconds=step_s, abs_median_step_s=float(np.median(step_s)),
+          sh_jv_launches=launches, sh_jv_launches_by_batch=by_batch,
+          seconds=time.perf_counter() - t0, card=repr(card))
+    return launches, by_batch
+
+
+def bruss_hopf_nf(card, prob, br):
+    """The Hopf normal form at the 128-site Brusselator's Hopf point:
+    matrix-free through the DIA kernel, dense (host eig of the jacobian),
+    and matrix-free on the CPU (plain `dia_spmv`) from the same point."""
+    n = prob.u0.numel()
+    idx = next(i for i, sp in enumerate(br.specialpoint)
+               if sp.type == "hopf")
+    sp = br.specialpoint[idx]
+    lam = sp.eigenvals[max(int(sp.ind_ev) - 1, 0)]
+    omega, zeta = float(abs(np.imag(lam))), \
+        sp.eigenvecs[:, max(int(sp.ind_ev) - 1, 0)]
+    if np.imag(lam) < 0:
+        zeta = torch.conj(zeta)
+    # the unpreconditioned real-embedded system has 2n + 2 unknowns
+    opts = dict(restart=2 * n + 2, maxiter=4 * (2 * n + 2))
+    reset_launches()
+    t0 = time.perf_counter()
+    with GmresLog() as log:
+        hp = bk.hopf_normal_form(prob, br, idx, matrix_free=True,
+                                 gmres_opts=opts)
+        torch.cuda.synchronize()
+    mf_s = time.perf_counter() - t0
+    launches = dia_spmv.launches
+    t1 = time.perf_counter()
+    hp_dense = bk.hopf_normal_form(prob, br, idx)
+    dense_s = time.perf_counter() - t1
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)          # small tensors: threads contend
+    t2 = time.perf_counter()
+    hp_cpu = bk.normal_forms.hopf_normal_form_point(
+        brusselator_problem(n // 2, "cpu"), sp.x.cpu(), sp.param,
+        omega, zeta=zeta.cpu(), matrix_free=True, gmres_opts=opts)
+    cpu_s = time.perf_counter() - t2
+    torch.set_num_threads(threads)
+    pred = bk.predictor(hp, 0.01)
+    gaps = {k: _rel_gap(hp.nf[k], hp_cpu.nf[k]) for k in ("a", "b")}
+    dense_gaps = {k: _rel_gap(hp.nf[k], hp_dense.nf[k]) for k in ("a", "b")}
+    phase("bruss_hopf_nf", p=sp.param, omega=hp.omega,
+          a=repr(hp.nf["a"]), b=repr(hp.nf["b"]), subtype=hp.subtype,
+          gap_cpu=gaps, omega_gap_cpu=abs(hp.omega - hp_cpu.omega),
+          gap_dense=dense_gaps, subtypes=[hp.subtype, hp_dense.subtype,
+                                          hp_cpu.subtype],
+          period=pred["period"], seconds_mf=mf_s, seconds_dense=dense_s,
+          seconds_cpu=cpu_s, dia_spmv_launches=launches,
+          gmres=log.summary(n), card=repr(card))
+    if not max(gaps.values()) <= NF_RTOL:
+        raise AssertionError(f"the Hopf normal form through dia_spmv "
+                             f"differs from the CPU's: {gaps}")
+    if not abs(hp.omega - hp_cpu.omega) <= 1e-9:
+        raise AssertionError("the Hopf frequency differs from the CPU's")
+    if not hp.subtype == hp_dense.subtype == hp_cpu.subtype:
+        raise AssertionError("the Hopf subtypes disagree")
+    if not (np.isfinite(pred["period"]) and pred["period"] > 0):
+        raise AssertionError(f"bad Hopf predictor period {pred['period']}")
+    if launches <= 0:
+        raise AssertionError("the Hopf normal form never launched dia_spmv")
+    return launches
+
+
+def check_small_nf(branches):
+    """The matrix-free normal form at the first bp of the 60x40 SH branch
+    on the card (kernel) and on the CPU (plain version) agree."""
+    nfs = {}
+    for dev, br in branches.items():
+        idx = next(i for i, sp in enumerate(br.specialpoint)
+                   if sp.type == "bp")
+        nfs[dev] = bk.get_normal_form(br, idx, matrix_free=True)
+    gaps = _nf_gaps(nfs["cuda"], nfs["cpu"])
+    phase("check_small_nf", type=type(nfs["cuda"]).__name__,
+          **{f"gap_{k}": v for k, v in gaps.items()}, rtol=NF_RTOL)
+    if not (max(gaps.values()) <= NF_RTOL
+            and type(nfs["cuda"]) is type(nfs["cpu"])):
+        raise AssertionError(f"60x40 normal form on the card disagrees with "
+                             f"the CPU: {gaps}")
 
 
 # ---------------------------------------------------------------------------
@@ -866,13 +1180,19 @@ def main():
     build()
     max_abs_err, compared_ks = compare_kernel()
     dia_abs_err = compare_dia()
-    prob, state, launches, by_batch, steps_per_s = main_path(card)
+    prob, ls, br, state, launches, by_batch, steps_per_s = main_path(card)
+    bp_launches, bp_by_batch = flagship_bp(card, prob, ls, br)
+    launches += bp_launches
+    for K, c in bp_by_batch.items():
+        by_batch[K] = by_batch.get(K, 0) + c
+    by_batch = dict(sorted(by_batch.items()))
     unchecked = sorted(set(by_batch) - compared_ks)
     if unchecked:
         raise AssertionError(f"the flagship launched sh_jv at K = "
                              f"{unchecked}, which no compare case checks")
-    dia_launches, bruss_seconds = brusselator_path(card)
-    check_outputs(prob, state)
+    dia_launches, bruss_seconds, bprob, bbr = brusselator_path(card)
+    dia_launches += bruss_hopf_nf(card, bprob, bbr)
+    check_small_nf(check_outputs(prob, state))
     check_bruss_small()
     floor = device_floor()
     cases = time_kernel(floor)
