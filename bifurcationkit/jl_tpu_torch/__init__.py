@@ -61,6 +61,10 @@ from .ops import BSRMatrix, DIAMatrix, ELLMatrix, dia_spmv  # noqa: E402
 from .normal_forms import (BifDiagNode, bifurcationdiagram,  # noqa: E402
                            continuation_from_bp, get_normal_form,
                            hopf_normal_form, multicontinuation, predictor)
+from .codim2 import (continuation_fold, continuation_fold_mf,  # noqa: E402
+                     continuation_hopf, continuation_hopf_mf,
+                     fold_ma_problem, fold_ma_problem_mf, hopf_ma_problem,
+                     hopf_ma_problem_mf, newton_fold, newton_hopf, refine_gh)
 
 __version__ = "0.1.0"
 

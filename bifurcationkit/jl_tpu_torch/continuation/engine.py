@@ -266,9 +266,13 @@ class ContIterable:
         return state
 
     def _can_fuse(self) -> bool:
-        """The fused step applies for plain PALC with the Secant tangent."""
+        """The fused step applies for plain PALC with the Secant tangent,
+        unless the problem opts out (`fuse_step = False`: the matrix-free
+        minimally augmented problems, whose failed steps do not eigensolve
+        the old point, as in the JAX package)."""
         return (isinstance(self.alg, PALC)
-                and isinstance(getattr(self.alg, "tangent", None), Secant))
+                and isinstance(getattr(self.alg, "tangent", None), Secant)
+                and getattr(self.prob, "fuse_step", True))
 
     # ------------------------------------------------------------------
     # predictors

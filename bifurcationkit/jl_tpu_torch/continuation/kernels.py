@@ -78,6 +78,12 @@ def _pick_jac(prob, linsolver):
                                                  False):
         return prob.jacobian
     if isinstance(linsolver, IterativeRefinement):
+        # problems whose jac_op already returns a PairedOperator (the
+        # matrix-free minimally augmented functionals) bring their own low
+        # twin; one built here would re-enter their sigma solves at cast
+        # primals
+        if getattr(prob, "jac_op_paired", False):
+            return prob.jacobian_operator
         # mixed-precision refinement: pair the accurate operator with a
         # twin built at cast (low-precision) primals, so the inner Krylov
         # runs natively at that precision (the SH kernel's f32 instance)
@@ -302,7 +308,13 @@ def make_kernels(prob, alg, contparams: ContinuationPar,
     seed_dtype = eig_dtype or like.dtype
     _seed_cols_fn = getattr(eigsolver, "seed_cols", None)
     n_seed_cols = _seed_cols_fn(nev) if callable(_seed_cols_fn) else None
-    seed_shape = (n_state, n_seed_cols) if n_seed_cols else (n_state,)
+    # augmented (codim-2) problems give the spectrum-defining inner
+    # jacobian separately, on the inner state without the border rows
+    # (ref FoldEig stripping the border, src/codim2/MinAugFold.jl:579-601)
+    eig_jac = getattr(prob, "eig_jacobian", None)
+    n_eig = (getattr(prob, "n_inner", None) or n_state) if eig_jac \
+        else n_state
+    seed_shape = (n_eig, n_seed_cols) if n_seed_cols else (n_eig,)
     # the symmetry probe costs two matvecs and a sync: run it on the first
     # sweep only (the JAX package skips it inside its jitted step)
     probe = {"pending": bool(getattr(eigsolver, "symmetry_check", False))}
@@ -315,7 +327,9 @@ def make_kernels(prob, alg, contparams: ContinuationPar,
             eig_seed = None          # shape change = nev was auto-raised
         par = set_p(params, p)
         J_hi = None
-        if eig_needs_matrix:
+        if eig_jac is not None:
+            J = eig_jac(u, par)
+        elif eig_needs_matrix:
             J = prob.jacobian(u, par)
         elif eig_dtype is not None:
             J = _flat_op(prob, _cast_floats(u, eig_dtype),

@@ -70,3 +70,19 @@ def normal_form_to_numpy(nf) -> Dict[str, Any]:
     if hasattr(nf, "omega"):
         out["omega"] = float(nf.omega)
     return out
+
+
+def codim2_branch_to_numpy(br) -> Dict[str, np.ndarray]:
+    """The comparable columns of a codim-2 curve (a `Branch` or its
+    `ContResult`, of either package): the continuation parameter `param`,
+    the codim-1 parameter `p1`, `omega` on Hopf curves, and the special
+    points' `type`, `param` and `status` (in detection order)."""
+    gamma = getattr(br, "gamma", br)
+    tbl = gamma._table()
+    out = {k: np.asarray(tbl[k], dtype=float)
+           for k in ("param", "p1", "omega") if k in tbl}
+    sps = gamma.specialpoint
+    out["sp_type"] = np.asarray([sp.type for sp in sps], dtype=str)
+    out["sp_param"] = np.asarray([float(sp.param) for sp in sps], dtype=float)
+    out["sp_status"] = np.asarray([sp.status for sp in sps], dtype=str)
+    return out

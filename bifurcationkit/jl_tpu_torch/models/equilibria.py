@@ -1,8 +1,8 @@
 """Small equilibrium models — the port of the parts of
 `jl_tpu/models/equilibria.py` the port runs (ref examples/*.jl, test
 fixtures): the Chan and Carrier BVPs, the scalar transcritical and
-pitchfork normal forms, the planar Hopf normal form and the 1D
-Brusselator.
+pitchfork normal forms, the planar Hopf normal form, the 1D
+Brusselator and the Lorenz-84 model.
 
 Each takes `device=` (None means the card, which raises where there is
 none; pass `device="cpu"` to run on the CPU) and `dtype=`; the state and
@@ -161,3 +161,27 @@ def brusselator_1d(n: int = 100, alpha: float = 2.0, beta: float = 5.45,
     params = _params({"alpha": alpha, "beta": beta, "D1": D1, "D2": D2,
                       "l": l}, dtype, dev)
     return BifurcationProblem(F, u0=u0, params=params, lens="l")
+
+
+def lorenz84(params=None, device=None, dtype: torch.dtype = DEFAULT_DTYPE):
+    """Lorenz-84 atmospheric model (ref test/hopf_codim_2/lorenz84.jl):
+    rich codim-2 structure (BT, ZH, HH on fold/Hopf curves), continued in
+    `F`."""
+    dev = resolve_device(device)
+    if params is None:
+        params = {"a": 0.25, "b": 4.0, "G": 0.25, "F": 1.0}
+
+    def F(u, par):
+        X, Y, Z, U = u[0], u[1], u[2], u[3]
+        a, b, G, Ff = par["a"], par["b"], par["G"], par["F"]
+        return torch.stack([
+            -Y ** 2 - Z ** 2 - a * X + a * Ff - G * U ** 2,
+            X * Y - b * X * Z - Y + G,
+            b * X * Y + X * Z - Z,
+            -G * U + G * X * U,
+        ])
+
+    # converges to the U = 0 equilibrium branch (X ~ 0.984 at F = 1)
+    u0 = torch.tensor([1.2, 0.2, 0.1, 0.0], dtype=dtype, device=dev)
+    return BifurcationProblem(F, u0=u0, params=_params(params, dtype, dev),
+                              lens="F")

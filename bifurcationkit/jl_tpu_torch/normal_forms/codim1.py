@@ -110,6 +110,16 @@ class _FlatProblem:
     def d2F(self, v1, v2):
         return self._multilinear(self.prob.d2F, (v1, v2))
 
+    def forms_batch(self, form, *blocks):
+        """A real multilinear form (`prob.d2F`, `prob.d3F`) at x0 on a
+        batch of real direction tuples, the rows of the (k, n) `blocks`,
+        in one vmapped call: (k, n)."""
+        def one(*cols):
+            return ravel(form(self.x0, self.parbif,
+                              *[self._as_state(c) for c in cols]))[0]
+
+        return torch.func.vmap(one)(*blocks)
+
     def d3F(self, v1, v2, v3):
         return self._multilinear(self.prob.d3F, (v1, v2, v3))
 

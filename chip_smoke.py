@@ -44,10 +44,35 @@ Phases, one line each (a failing phase raises and the script exits non-zero):
       the DIA kernel, dense, and matrix-free on the CPU from the same
       point: a and b card against CPU to 1e-8, omega to 1e-9, one subtype,
       a finite period;
+   e. `flagship_fold`: the flagship branch continued (GMRES, no
+      eigensolves) to the step just past its first fold
+      (FLAGSHIP_FOLD_STEPS), then the matrix-free minimally augmented
+      fold curve in nu there (examples/sh2d_fronts.py:143-176, bench.py's
+      `ma_mf`): 1 warm and 3 timed steps through the kernel — steps/s,
+      the anchors' bootstrap, extended solves and GMRES iterations per
+      step, GMRES iterations per solve, `sh_jv` launches by batch size —
+      then one more of the curve's own steps under torch.profiler (busy
+      time, idle share, longest kernels); sigma recomputed with fresh
+      random borders on and off the curve at its first, middle and last
+      points; the first 2 steps again with J.v through the plain version,
+      (nu, l) to 1e-8;
+   f. `bruss_hopf_curve`: the matrix-free Hopf curve in beta from the
+      128-site Brusselator's Hopf point (examples/brusselator.py:24-27,
+      cut to BRUSS_HOPF_STEPS steps) through the DIA kernel, with the GH
+      monitor on: every step converged, a host eig of the dense jacobian
+      at 3 points with its critical pair on the imaginary axis at omega
+      to 1e-6, and the same curve on the CPU: (beta, l, omega) to 1e-8;
+      the first Lyapunov coefficient dense on the host at every point
+      (the converged witness), matrix-free on the card and on the CPU at
+      3 points to 1e-6 relative of it, and a GH or ZH label where, and
+      only where, the witness changes sign;
 5. check: the flagship's last point is a finite root of F, a 60x40 SH
    branch and a 32-site Brusselator branch on the card match the same
-   branches on the CPU, and the matrix-free normal form at the 60x40
-   branch's first bp on the card matches the CPU's to 1e-8;
+   branches on the CPU, the matrix-free normal form at the 60x40
+   branch's first bp on the card matches the CPU's to 1e-8, and small
+   codim-2 curves (the cusp's fold curve dense and matrix-free, the exact
+   Hopf curve of z' = (p + q + i) z - z|z|^2 matrix-free) on the card
+   match the CPU's to 1e-9;
 6. timing: each kernel, its plain version and its bound at the main
    paths' shapes: the wrapper's time (CUDA events over back-to-back
    calls), its host time per call (the host clock over calls with no
@@ -63,8 +88,9 @@ Phases, one line each (a failing phase raises and the script exits non-zero):
    output's allocation, the ctypes call (with the CUDA launch in it), and
    the stream and device queries around it.
 
-Then the nvidia-smi line, one JSON line listing the kernels, and the final
-JSON line.  Full details go to chiprun_out/chip_smoke.json.
+Then each part's seconds on the host clock (`wall`), the nvidia-smi line,
+one JSON line listing the kernels, and the final JSON line.  Full details
+go to chiprun_out/chip_smoke.json.
 """
 import dataclasses
 import functools
@@ -83,6 +109,8 @@ import torch  # noqa: E402
 
 import bifurcationkit.jl_tpu_torch as bk  # noqa: E402
 from bifurcationkit.jl_tpu_torch import interop, models  # noqa: E402
+from bifurcationkit.jl_tpu_torch.codim2 import (  # noqa: E402
+    minaug, minaug_mf)
 from bifurcationkit.jl_tpu_torch.continuation.engine import (  # noqa: E402
     ContIterable)
 from bifurcationkit.jl_tpu_torch.core.state import BorderedState  # noqa: E402
@@ -105,6 +133,17 @@ NEWTON_TOL = 1e-7          # the continuation's Newton tolerance
 # at l = -0.2155085 on the H100; the example runs at most 60 steps
 # (examples/sh2d_fronts.py)
 FLAGSHIP_BP_STEPS = 11
+# the step just past the first fold of the flagship branch continued
+# with bench.py's CPU-leg settings (GMRES, no eigensolves): the fold at
+# l = -0.2151245 (recorded at step 10) is detected after step 11 on the
+# H100; the bench runs at most 60 steps
+FLAGSHIP_FOLD_STEPS = 11
+FOLD_WARM, FOLD_TIMED = 1, 3   # fold-curve steps, as bench.py's ma_mf
+CODIM2_TOL = 1e-8          # curves through a kernel against a reference
+# depth cut of the Brusselator's Hopf curve (examples/brusselator.py runs
+# it to beta = 10.5)
+BRUSS_HOPF_STEPS = 6
+L1_RTOL = 1e-6             # l1 through a kernel against the dense witness
 NF_KEYS = ("a01", "b11", "b20", "b30")
 NF_INDICES = {"a01": 1, "b11": 2, "b20": 3, "b30": 4}
 NF_RTOL = 1e-8             # normal-form coefficients, relative to max(|c|, 1)
@@ -413,23 +452,20 @@ def _profile(fn):
     return _kernel_rows(prof), wall
 
 
-def _profiled_step(it, state, kernel, step_times):
-    """One PALC step under torch.profiler after unprofiled steps that took
+def _busy_fields(rows, wall, kernel, step_times, p):
+    """What one profiled step shows beside unprofiled steps that took
     `step_times` seconds: the card's busy time, its launches in all and of
     `kernel`, and the longest kernels.  The profiler's own host work slows
     the step it traces, so `idle_share` divides the busy time by the median
     unprofiled step; the share against the profiled step's own wall time is
     printed beside it, labelled as such.  Returns the fields and the busy
     seconds."""
-    rows, wall = _profile(lambda: it.iterate(state))
-    if not state.converged:
-        raise AssertionError("the profiled PALC step did not converge")
     busy = sum(r[1] for r in rows) * 1e-6
     mine = [r for r in rows if f"{kernel}_kernel" in r[0]]
     step_s = float(np.median(step_times))
     missing = "not measured"
     return dict(
-        median_unprofiled_step_s=step_s, profiled_step_s=wall, p=state.p,
+        median_unprofiled_step_s=step_s, profiled_step_s=wall, p=p,
         device_busy_s=busy if rows else missing,
         idle_share=(1 - busy / step_s) if rows else missing,
         idle_share_of_profiled_wall=(1 - busy / wall) if rows else missing,
@@ -438,6 +474,14 @@ def _profiled_step(it, state, kernel, step_times):
            f"{kernel}_device_s": sum(r[1] for r in mine) * 1e-6},
         top_kernels_ms=[(n[:70], round(us / 1e3, 3), c)
                         for n, us, c in rows[:8]]), busy if rows else None
+
+
+def _profiled_step(it, state, kernel, step_times):
+    """One PALC step under torch.profiler (`_busy_fields`)."""
+    rows, wall = _profile(lambda: it.iterate(state))
+    if not state.converged:
+        raise AssertionError("the profiled PALC step did not converge")
+    return _busy_fields(rows, wall, kernel, step_times, state.p)
 
 
 def breakdown(it, state, timed_steps):
@@ -677,6 +721,10 @@ class GmresLog:
 
     def __exit__(self, *exc):
         linear._gmres_flat = self._orig
+
+    def iterations(self):
+        """The matvecs of every solve so far."""
+        return sum(sum(v) for v in self.solves.values())
 
     def summary(self, n):
         """Per system size (n + k: bordered with k borders; 2n + 2:
@@ -941,6 +989,510 @@ def check_small_nf(branches):
 
 
 # ---------------------------------------------------------------------------
+# 4e-f. codim-2 curves: the flagship's fold curve, the Brusselator's Hopf
+# curve
+# ---------------------------------------------------------------------------
+
+
+class ExtSolveLog:
+    """Counts the extended bordered solves of the minimally augmented
+    functionals (`minaug_mf.solve_bordered_ext` and its complex twin)
+    while active; GmresLog counts every GMRES solve, these included."""
+
+    NAMES = ("solve_bordered_ext", "solve_bordered_ext_cplx")
+
+    def __enter__(self):
+        self.count = 0
+        self._orig = {k: getattr(minaug_mf, k) for k in self.NAMES}
+
+        def counted(fn):
+            def wrapper(*args, **kwargs):
+                self.count += 1
+                return fn(*args, **kwargs)
+            return wrapper
+
+        for k, fn in self._orig.items():
+            setattr(minaug_mf, k, counted(fn))
+        return self
+
+    def __exit__(self, *exc):
+        for k, fn in self._orig.items():
+            setattr(minaug_mf, k, fn)
+
+
+class StepStamps:
+    """`finalise_solution` hook: the time each converged step ends and the
+    engine's step count there (a step that failed and was retried with a
+    smaller ds shows as a gap in the count), and at each stamp the running
+    value of each of `counters` (name -> function).  With `profile_after`
+    = k, the step after the k-th stamp runs under torch.profiler, from
+    that stamp to the next: one of the curve's own steps, with its events
+    and its update hook."""
+
+    def __init__(self, counters=None, profile_after=None):
+        self.t, self.steps, self.p = [], [], []
+        self.counters = counters or {}
+        self.counts = {k: [] for k in self.counters}
+        self.profile_after = profile_after
+        self._prof = None
+        self.rows = self.profiled_s = None
+
+    def __call__(self, z, tau, step, res, state=None, **kwargs):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        if self._prof is not None:
+            self._prof.__exit__(None, None, None)
+            self.rows = _kernel_rows(self._prof)
+            self.profiled_s = now - self.t[-1]
+            self._prof = None
+        self.t.append(now)
+        self.steps.append(int(state.step) if state is not None else step)
+        self.p.append(state.p if state is not None else None)
+        for k, fn in self.counters.items():
+            self.counts[k].append(fn())
+        if len(self.t) == self.profile_after:
+            from torch.profiler import ProfilerActivity, profile
+
+            self._prof = profile(activities=[ProfilerActivity.CPU,
+                                             ProfilerActivity.CUDA])
+            self._prof.__enter__()
+
+    def per_step(self, name):
+        """The counter's growth over each step after the first stamp."""
+        return np.diff(self.counts[name]).tolist()
+
+    def all_converged(self):
+        return self.steps == list(range(1, len(self.steps) + 1))
+
+
+def _timed_bootstrap(name):
+    """Wrap `minaug_mf.<name>` to record its seconds (the anchors'
+    bootstrap by bordered inverse iteration)."""
+    orig = getattr(minaug_mf, name)
+    took = []
+
+    def wrapper(*args, **kwargs):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = orig(*args, **kwargs)
+        torch.cuda.synchronize()
+        took.append(time.perf_counter() - t)
+        return out
+
+    setattr(minaug_mf, name, wrapper)
+    return orig, took
+
+
+def fold_branch_config(prob, max_steps):
+    """bench.py's CPU-leg settings of the flagship branch to its first
+    fold (`ma_mf`): GMRES(40, 300, 1e-10) with the spectral
+    preconditioner, no eigensolves, fold detection on."""
+    ls = bk.GMRES(restart=40, maxiter=300, rtol=1e-10,
+                  precond=prob.spectral_precond)
+    return ls, bk.ContinuationPar(
+        ds=-0.005, dsmax=0.02, dsmin=1e-6, p_min=-0.8, p_max=0.2,
+        max_steps=max_steps, nev=4, detect_bifurcation=0, detect_fold=True,
+        save_eigenvectors=False,
+        newton_options=bk.NewtonPar(tol=NEWTON_TOL, max_iterations=15,
+                                    linsolver=ls))
+
+
+def fold_curve_config(prob, max_steps):
+    """The `cp2` of examples/sh2d_fronts.py:150-164: GMRES(40, 400, 1e-9),
+    Newton 1e-7."""
+    return bk.ContinuationPar(
+        ds=0.01, dsmax=0.02, dsmin=1e-6, p_min=0.5, p_max=2.0,
+        max_steps=max_steps, detect_bifurcation=0, detect_fold=False,
+        save_eigenvectors=False,
+        newton_options=bk.NewtonPar(
+            tol=NEWTON_TOL, max_iterations=20,
+            linsolver=bk.GMRES(restart=40, maxiter=400, rtol=1e-9,
+                               precond=prob.spectral_precond)))
+
+
+def _fresh_sigma(maprob, precond, X, p2, p1, seed=5):
+    """|sigma| of the fold functional at (x, p2, p1) from a bordered solve
+    with fresh random borders: it vanishes where J is singular,
+    whatever borders the corrector used."""
+    n = maprob.n_inner
+    inner = maprob.inner_prob
+    rng = np.random.default_rng(seed)
+    rb = torch.as_tensor(rng.standard_normal(n), device=X.device)
+    rb = rb / torch.linalg.vector_norm(rb)
+    gm = bk.GMRES(restart=40, maxiter=400, rtol=1e-8, atol=1e-12,
+                  precond=minaug_mf.ext_precond(precond, n))
+    par = maprob.inner_lens.set(maprob.outer_lens.set(inner.params, p2), p1)
+    _, sig, _ = minaug_mf.solve_bordered_ext(
+        minaug_mf._jd(inner, maprob.unravel_inner(X[:n]), par), rb, rb, gm)
+    return abs(float(sig))
+
+
+def flagship_fold(card):
+    """The flagship's fold-curve leg: the branch to its first fold, then
+    the matrix-free fold curve in nu through the kernel, checked by
+    sigma with fresh borders and against the plain J.v's curve."""
+    prob = models.swift_hohenberg_2d(Nx=151, Ny=100)      # on the card
+    ls, cp = fold_branch_config(prob, FLAGSHIP_FOLD_STEPS)
+    t0 = time.perf_counter()
+    sol = bk.newton(prob, bk.NewtonPar(tol=1e-8, max_iterations=25,
+                                       linsolver=ls))
+    if not sol.converged:
+        raise AssertionError("Newton did not converge on the flagship")
+    br = bk.continuation(prob.re_make(u0=sol.u), bk.PALC(), cp)
+    torch.cuda.synchronize()
+    folds = br.get_special_points("fold")
+    phase("flagship_fold_branch", steps=len(br) - 1,
+          folds=[(sp.param, sp.step) for sp in folds],
+          seconds=time.perf_counter() - t0)
+    if not folds:
+        raise AssertionError(f"the flagship met no fold in "
+                             f"{FLAGSHIP_FOLD_STEPS} steps")
+    idx = br.specialpoint.index(folds[0])
+    n = prob.u0.numel()
+
+    timed_end = FOLD_WARM + FOLD_TIMED
+    steps = timed_end + 1          # and one profiled step after them
+    reset_launches()
+    orig, boot = _timed_bootstrap("bootstrap_fold_anchors")
+    t1 = time.perf_counter()
+    try:
+        with GmresLog() as log, ExtSolveLog() as ext:
+            stamps = StepStamps(
+                counters={"gmres_iterations": log.iterations,
+                          "extended_solves": lambda: ext.count},
+                profile_after=timed_end)
+            brf = bk.continuation_fold(
+                br, idx, "nu", fold_curve_config(prob, steps),
+                detect_codim2_bifurcation=2, jacobian_ma="minaug",
+                finalise_solution=stamps)
+            torch.cuda.synchronize()
+    finally:
+        minaug_mf.bootstrap_fold_anchors = orig
+    seconds = time.perf_counter() - t1
+    launches = sh_jv_mod.sh_jv.launches
+    by_batch = dict(sorted(sh_jv_mod.sh_jv.launches_by_batch.items()))
+    timed = np.diff(stamps.t[FOLD_WARM - 1:timed_end])
+    curve = interop.codim2_branch_to_numpy(brf)
+    gm = log.summary(n)
+    n_gmres = sum(v["solves"] for v in gm.values())
+    phase("flagship_fold", fold_p=folds[0].param, fold_step=folds[0].step,
+          steps=len(brf) - 1, nu=curve["param"].tolist(),
+          l=curve["p1"].tolist(), special=list(curve["sp_type"]),
+          steps_per_s=len(timed) / float(np.sum(timed)),
+          timed_step_s=timed.tolist(), bootstrap_s=boot,
+          gmres_iterations_by_step=stamps.per_step("gmres_iterations"),
+          extended_solves_by_step=stamps.per_step("extended_solves"),
+          seconds=seconds, extended_solves=ext.count,
+          extended_solves_per_step=ext.count / max(len(brf) - 1, 1),
+          gmres_solves=n_gmres, gmres=gm,
+          gmres_iterations_per_solve=float(np.mean(
+              [i for v in log.solves.values() for i in v])),
+          sh_jv_launches=launches, sh_jv_launches_by_batch=by_batch,
+          card=repr(card))
+    if not (len(brf) - 1 == steps and stamps.all_converged()):
+        raise AssertionError(f"a fold-curve step failed: engine steps "
+                             f"{stamps.steps}")
+    if launches <= 0:
+        raise AssertionError("the fold curve never launched sh_jv")
+
+    fold_breakdown(stamps, timed_end)
+
+    # sigma with fresh random borders: ~0 on the curve, not off it
+    maprob = brf.gamma.prob
+    checks = []
+    for k in (1, len(brf) // 2, len(brf) - 1):
+        X = brf.gamma.sol[k]["x"]
+        p2, p1 = float(curve["param"][k]), float(curve["p1"][k])
+        on = _fresh_sigma(maprob, prob.spectral_precond, X, p2, p1)
+        off = _fresh_sigma(maprob, prob.spectral_precond, X, p2, p1 + 0.03)
+        checks.append(dict(point=k, sigma_on=on, sigma_off=off))
+        if not (on < 1e-3 and on < 1e-2 * off):
+            raise AssertionError(f"the fold curve is not on the fold at "
+                                 f"point {k}: sigma {on} (off {off})")
+    phase("flagship_fold_sigma", points=checks)
+
+    # the first steps again with J.v through the plain version (no sh_jv
+    # launch at all)
+    t2 = time.perf_counter()
+    plain = dataclasses.replace(
+        br, prob=br.prob.re_make(jac_op=flagship_plain_jac_op()))
+    reset_launches()
+    brp = bk.continuation_fold(plain, idx, "nu", fold_curve_config(prob, 2),
+                               detect_codim2_bifurcation=2,
+                               jacobian_ma="minaug")
+    torch.cuda.synchronize()
+    plain_launches = sh_jv_mod.sh_jv.launches
+    cp_ = interop.codim2_branch_to_numpy(brp)
+    k = len(cp_["param"])
+    gap = max(float(np.max(np.abs(cp_["param"] - curve["param"][:k]))),
+              float(np.max(np.abs(cp_["p1"] - curve["p1"][:k]))))
+    phase("flagship_fold_plain", steps=k - 1, max_abs_gap=gap,
+          tol=CODIM2_TOL, sh_jv_launches=plain_launches,
+          seconds=time.perf_counter() - t2)
+    if not (k == 3 and gap <= CODIM2_TOL and plain_launches == 0):
+        raise AssertionError(f"the fold curve through sh_jv differs from "
+                             f"the plain J.v's: {gap} ({k - 1} steps, "
+                             f"{plain_launches} sh_jv launches)")
+    return launches, by_batch
+
+
+def fold_breakdown(stamps, timed_end):
+    """Where a fold-curve step goes: the curve's own step after its timed
+    ones, run under torch.profiler by `stamps` (the corrector, the events,
+    and the update hook's re-anchoring), beside the timed steps.  The
+    profiled step may take other GMRES iterations than a timed one, so
+    `idle_share_per_iteration` scales its busy time to the timed steps'
+    median iterations first."""
+    if stamps.rows is None:
+        raise AssertionError("the fold curve's profiled step did not run")
+    timed = np.diff(stamps.t[FOLD_WARM - 1:timed_end])
+    its = stamps.per_step("gmres_iterations")     # steps 2, 3, ...
+    ext = stamps.per_step("extended_solves")
+    timed_its = its[FOLD_WARM - 1:timed_end - 1]
+    prof_it = its[timed_end - 1]
+    fields, busy = _busy_fields(stamps.rows, stamps.profiled_s, "sh_jv",
+                                timed, stamps.p[timed_end])
+    it_s = float(np.median(timed_its))
+    phase("fold_breakdown", step=timed_end + 1,
+          timed_gmres_iterations=timed_its, gmres_iterations=prof_it,
+          extended_solves=ext[timed_end - 1],
+          idle_share_per_iteration=(
+              1 - busy / prof_it * it_s / float(np.median(timed)))
+          if busy is not None else "not measured", **fields)
+
+
+def _dense_dia(A):
+    """A DIAMatrix as a dense host matrix."""
+    data = A.data.detach().cpu().numpy()
+    n = data.shape[1]
+    M = np.zeros((n, n))
+    i = np.arange(n)
+    for k, off in enumerate(A.offsets):
+        j = i + off
+        m = (j >= 0) & (j < n)
+        M[i[m], j[m]] = data[k][m]
+    return M
+
+
+def bruss_hopf_config(n, steps):
+    """The `cp2` of examples/brusselator.py:24-27 on the path's
+    `ContinuationPar`, cut to `steps` steps."""
+    return brusselator_config(n).replace(
+        p_min=5.1, p_max=10.5, ds=0.01, detect_bifurcation=0,
+        detect_fold=False, max_steps=steps)
+
+
+def _cpu_branch_shim(br, idx, prob_cpu):
+    """The Hopf point of a card branch, moved to the CPU with the CPU's
+    problem, as a one-point branch."""
+    sp = dataclasses.replace(
+        br.specialpoint[idx], x=br.specialpoint[idx].x.cpu(),
+        eigenvecs=br.specialpoint[idx].eigenvecs.cpu())
+    return bk.ContResult(prob=prob_cpu, specialpoint=[sp])
+
+
+def _hopf_curve(br, idx, n, steps, **kw):
+    opts = dict(restart=2 * n + 2, maxiter=4 * (2 * n + 2))
+    return bk.continuation_hopf(
+        br, idx, "beta", bruss_hopf_config(n // 2, steps),
+        detect_codim2_bifurcation=2, jacobian_ma="minaug", gmres_opts=opts,
+        **kw)
+
+
+def bruss_hopf_curve(card, prob, br):
+    """The matrix-free Hopf curve in beta from the 128-site Brusselator's
+    Hopf point, through the DIA kernel, against a dense host eig and the
+    same curve on the CPU."""
+    n = prob.u0.numel()
+    idx = next(i for i, sp in enumerate(br.specialpoint)
+               if sp.type == "hopf")
+    reset_launches()
+    stamps = StepStamps()
+    t0 = time.perf_counter()
+    with GmresLog() as log, ExtSolveLog() as ext:
+        brh = _hopf_curve(br, idx, n, BRUSS_HOPF_STEPS,
+                          finalise_solution=stamps)
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dia_spmv.launches
+    curve = interop.codim2_branch_to_numpy(brh)
+    step_s = np.diff(stamps.t)
+    phase("bruss_hopf_curve", steps=len(brh) - 1,
+          beta=curve["param"].tolist(), l=curve["p1"].tolist(),
+          omega=curve["omega"].tolist(), special=list(curve["sp_type"]),
+          seconds=seconds, step_s=step_s.tolist(),
+          median_step_s=float(np.median(step_s)),
+          extended_solves=ext.count, gmres=log.summary(n),
+          dia_spmv_launches=launches, card=repr(card))
+    if not (len(brh) - 1 == BRUSS_HOPF_STEPS and stamps.all_converged()):
+        raise AssertionError(f"a Hopf-curve step failed: engine steps "
+                             f"{stamps.steps}")
+    if launches <= 0:
+        raise AssertionError("the Hopf curve never launched dia_spmv")
+
+    # the critical pair of the dense jacobian, on the host
+    maprob = brh.gamma.prob
+    jac = brusselator_dia_jac_op(n // 2)
+    eig_checks = []
+    for k in (1, len(brh) // 2, len(brh) - 1):
+        X = brh.gamma.sol[k]["x"]
+        par = maprob.inner_lens.set(maprob.outer_lens.set(
+            prob.params, float(curve["param"][k])), X[n])
+        vals = np.linalg.eigvals(_dense_dia(jac(X[:n], par)))
+        om = float(curve["omega"][k])
+        i = int(np.argmin(np.abs(vals - 1j * om)))
+        eig_checks.append(dict(point=k, re=float(vals[i].real),
+                               im_gap=float(abs(vals[i].imag - om))))
+        if not (abs(vals[i].real) <= 1e-6 and abs(vals[i].imag - om)
+                <= 1e-6):
+            raise AssertionError(f"no critical pair at i omega at point "
+                                 f"{k}: {vals[i]} against {om}")
+
+    # the same curve on the CPU (plain dia_spmv)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)          # small tensors: threads contend
+    t1 = time.perf_counter()
+    cpu_prob = brusselator_problem(n // 2, "cpu")
+    brc = _hopf_curve(_cpu_branch_shim(br, idx, cpu_prob), 0, n,
+                      BRUSS_HOPF_STEPS)
+    cpu_s = time.perf_counter() - t1
+    cc = interop.codim2_branch_to_numpy(brc)
+    k = len(cc["param"])
+    gap = max(float(np.max(np.abs(cc[key] - curve[key][:k])))
+              for key in ("param", "p1", "omega")) \
+        if k == len(curve["param"]) else np.inf
+    # l1 along the curve: dense on the host (a direct eigendecomposition
+    # and direct solves: the converged witness) at every point, and at 3
+    # points matrix-free on the card (through the kernel) and on the CPU
+    # from the card's points, with the same borders
+    cpu_mp = brc.gamma.prob
+    cpu_par = {key: (v.cpu() if isinstance(v, torch.Tensor) else v)
+               for key, v in maprob.params.items()}
+    cpu_par["_inner"] = cpu_mp.params["_inner"]
+    l1_card = minaug_mf.make_l1_kernel_mf(maprob)
+    l1_cpu = minaug_mf.make_l1_kernel_mf(cpu_mp)
+    l1_dense = minaug._make_l1_kernel(cpu_mp)
+    dense = []
+    for k in range(len(brh)):
+        par = cpu_mp.set_lens_param(cpu_par, float(curve["param"][k]))
+        dense.append(float(l1_dense(brh.gamma.sol[k]["x"].cpu(),
+                                    par["_inner"])))
+    l1_gaps = []
+    for k in (1, len(brh) // 2, len(brh) - 1):
+        p2 = float(curve["param"][k])
+        X = brh.gamma.sol[k]["x"]
+        a = float(l1_card(X, maprob.set_lens_param(maprob.params, p2)))
+        b = float(l1_cpu(X.cpu(), cpu_mp.set_lens_param(cpu_par, p2)))
+        l1_gaps.append(dict(point=k, l1=a, l1_dense=dense[k],
+                            rel_gap_dense=_rel(a, dense[k]),
+                            rel_gap_cpu=_rel(a, b)))
+    torch.set_num_threads(threads)
+    # a GH or ZH label where, and only where, the witness changes sign
+    sign_changes = int(np.sum(np.diff(np.sign(dense)) != 0))
+    labels = [k for k in curve["sp_type"] if k in ("gh", "zh")]
+    phase("bruss_hopf_curve_check", eig=eig_checks, cpu_seconds=cpu_s,
+          max_abs_gap_cpu=gap, tol=CODIM2_TOL, l1_dense=dense,
+          l1=l1_gaps, l1_rtol=L1_RTOL, l1_sign_changes=sign_changes,
+          gh_zh_labels=labels)
+    if not gap <= CODIM2_TOL:
+        raise AssertionError(f"the Hopf curve on the card differs from the "
+                             f"CPU's: {gap}")
+    if not max(max(g["rel_gap_dense"], g["rel_gap_cpu"])
+               for g in l1_gaps) <= L1_RTOL:
+        raise AssertionError(f"l1 on the card differs from the dense "
+                             f"witness or the CPU's: {l1_gaps}")
+    if len(labels) != sign_changes:
+        raise AssertionError(f"GH/ZH labels {labels} where the dense l1 "
+                             f"changes sign {sign_changes} times")
+    return launches
+
+
+def _rel(a, b):
+    return abs(a - b) / max(abs(a), abs(b))
+
+
+def _small_models(dev):
+    """The small codim-2 cases on `dev`: the cusp model, the Hopf normal
+    form z' = (p + q + i) z - z|z|^2."""
+    d = dict(dtype=torch.float64, device=dev)
+
+    def cusp(u, par):
+        return u ** 3 + par["p1"] * u + par["p2"]
+
+    def hopf(u, par):
+        x, y = u[0], u[1]
+        mu = par["p"] + par["q"]
+        r2 = x * x + y * y
+        return torch.stack([mu * x - y - x * r2, x + mu * y - y * r2])
+
+    def par(**kw):
+        return {k: torch.tensor(v, **d) for k, v in kw.items()}
+
+    return (bk.BifurcationProblem(cusp, u0=torch.tensor([1.0], **d),
+                                  params=par(p1=-1.0, p2=0.0), lens="p2"),
+            bk.BifurcationProblem(hopf, u0=torch.zeros(2, **d),
+                                  params=par(p=-0.5, q=0.0), lens="p"))
+
+
+def _small_cp(**kw):
+    base = dict(ds=0.01, dsmax=0.05, dsmin=1e-5, p_min=-1.0, p_max=1.0,
+                max_steps=20, detect_bifurcation=0, detect_fold=True,
+                nev=2, n_inversion=4,
+                newton_options=bk.NewtonPar(tol=1e-10, max_iterations=30))
+    base.update(kw)
+    return bk.ContinuationPar(**base)
+
+
+def check_small_codim2():
+    """Small codim-2 curves on the card against the CPU: the cusp's fold
+    curve (dense and matrix-free) and the exact Hopf curve (matrix-free);
+    `bruss_hopf_curve` holds the matrix-free Hopf curve through the DIA
+    kernel against the CPU at full width."""
+    curves, seconds = {}, {}
+    threads = torch.get_num_threads()
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        torch.set_num_threads(1)          # small tensors: threads contend
+        cusp, hopf = _small_models(dev)
+        brc = bk.continuation(cusp, bk.PALC(), _small_cp())
+        ic = next(i for i, sp in enumerate(brc.specialpoint)
+                  if sp.type == "fold")
+        cp2 = _small_cp(ds=0.05, dsmax=0.2, p_min=-1.2, p_max=0.3,
+                        max_steps=20, detect_fold=False)
+        brh = bk.continuation(hopf, bk.PALC(), _small_cp(
+            detect_bifurcation=3, detect_fold=False, max_steps=15))
+        ih = next(i for i, sp in enumerate(brh.specialpoint)
+                  if sp.type == "hopf")
+        curves[dev] = {
+            "cusp_dense": bk.continuation_fold(
+                brc, ic, "p1", cp2, detect_codim2_bifurcation=2),
+            "cusp_mf": bk.continuation_fold(
+                brc, ic, "p1", cp2, detect_codim2_bifurcation=2,
+                jacobian_ma="minaug"),
+            "hopf_mf": bk.continuation_hopf(
+                brh, ih, "q", _small_cp(ds=0.02, p_min=-0.8, p_max=0.8,
+                                        max_steps=8, detect_fold=False),
+                detect_codim2_bifurcation=0, jacobian_ma="minaug"),
+        }
+        torch.set_num_threads(threads)
+        seconds[dev] = time.perf_counter() - t0
+    for name in curves["cuda"]:
+        a = interop.codim2_branch_to_numpy(curves["cuda"][name])
+        b = interop.codim2_branch_to_numpy(curves["cpu"][name])
+        same_len = len(a["param"]) == len(b["param"])
+        gap = max(float(np.max(np.abs(a[k] - b[k])))
+                  for k in ("param", "p1", "omega") if k in a) \
+            if same_len else np.inf
+        same_sp = list(a["sp_type"]) == list(b["sp_type"])
+        phase("check_small_codim2", curve=name, steps=len(a["param"]) - 1,
+              max_abs_gap=gap, same_special_types=same_sp,
+              special=list(a["sp_type"]), seconds=seconds)
+        if not (gap <= 1e-9 and same_sp):
+            raise AssertionError(f"the {name} curve on the card differs "
+                                 f"from the CPU's: {gap}, {same_sp}")
+
+
+# ---------------------------------------------------------------------------
 # 6. timing
 # ---------------------------------------------------------------------------
 
@@ -1175,29 +1727,60 @@ def time_dia(floor):
     return cases
 
 
+WALL_S = {}
+
+
+def walled(name, fn, *args):
+    """Run one part of the script, keeping its seconds on the host clock
+    in WALL_S."""
+    t = time.perf_counter()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    WALL_S[name] = time.perf_counter() - t
+    return out
+
+
 def main():
+    t0 = time.perf_counter()
     card = check_device()
-    build()
-    max_abs_err, compared_ks = compare_kernel()
-    dia_abs_err = compare_dia()
-    prob, ls, br, state, launches, by_batch, steps_per_s = main_path(card)
-    bp_launches, bp_by_batch = flagship_bp(card, prob, ls, br)
-    launches += bp_launches
-    for K, c in bp_by_batch.items():
-        by_batch[K] = by_batch.get(K, 0) + c
+    walled("build", build)
+    max_abs_err, compared_ks = walled("compare", compare_kernel)
+    dia_abs_err = walled("compare_dia", compare_dia)
+    prob, ls, br, state, launches, by_batch, steps_per_s = walled(
+        "main_path", main_path, card)
+    sh_phases = {"main_path": launches}
+    bp_launches, bp_by_batch = walled("flagship_bp", flagship_bp, card,
+                                      prob, ls, br)
+    fold_launches, fold_by_batch = walled("flagship_fold", flagship_fold,
+                                          card)
+    sh_phases.update(flagship_bp=bp_launches, flagship_fold=fold_launches)
+    launches = sum(sh_phases.values())
+    for more in (bp_by_batch, fold_by_batch):
+        for K, c in more.items():
+            by_batch[K] = by_batch.get(K, 0) + c
     by_batch = dict(sorted(by_batch.items()))
     unchecked = sorted(set(by_batch) - compared_ks)
     if unchecked:
         raise AssertionError(f"the flagship launched sh_jv at K = "
                              f"{unchecked}, which no compare case checks")
-    dia_launches, bruss_seconds, bprob, bbr = brusselator_path(card)
-    dia_launches += bruss_hopf_nf(card, bprob, bbr)
-    check_small_nf(check_outputs(prob, state))
-    check_bruss_small()
+    dia_launches, bruss_seconds, bprob, bbr = walled(
+        "brusselator_path", brusselator_path, card)
+    dia_phases = {
+        "brusselator_path": dia_launches,
+        "bruss_hopf_nf": walled("bruss_hopf_nf", bruss_hopf_nf, card, bprob,
+                                bbr),
+        "bruss_hopf_curve": walled("bruss_hopf_curve", bruss_hopf_curve,
+                                   card, bprob, bbr)}
+    dia_launches = sum(dia_phases.values())
+    walled("check_small_nf", lambda: check_small_nf(
+        check_outputs(prob, state)))
+    walled("check_bruss_small", check_bruss_small)
+    walled("check_small_codim2", check_small_codim2)
     floor = device_floor()
-    cases = time_kernel(floor)
-    dia_cases = time_dia(floor)
+    cases = walled("time_kernel", time_kernel, floor)
+    dia_cases = walled("time_dia", time_dia, floor)
     phase("clocks_after_timing", clocks=smi_line(CLOCKS))
+    phase("wall", seconds=WALL_S, total_s=time.perf_counter() - t0)
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
 
@@ -1220,6 +1803,7 @@ def main():
         "device_ms": head["device_ms"],
         "device_floor_ms": floor["device_floor_ms"],
         "launches_by_batch": by_batch,
+        "launches_by_phase": sh_phases,
         "cases": cases,
     }, {
         "name": "dia_spmv", "route": "cuda",
@@ -1233,6 +1817,7 @@ def main():
         "device_floor_ms": floor["device_floor_ms"],
         "library_host_ms": dhead["library_host_ms"],
         "library_device_ms": dhead["library_device_ms"],
+        "launches_by_phase": dia_phases,
         "cases": dia_cases,
     }]
     DETAILS["kernels"] = kernels
