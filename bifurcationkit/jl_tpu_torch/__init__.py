@@ -2,8 +2,8 @@
 `bifurcationkit.jl_tpu`.
 
 Same layout and names as the JAX package (`core/`, `linalg/`, `newton.py`,
-`models/`, `ops/`, `continuation/`, `detection/`, `normal_forms/`,
-`codim2/`); plain PyTorch inside:
+`deflation.py`, `models/`, `ops/`, `continuation/`, `detection/`,
+`normal_forms/`, `codim2/`, `periodic/`); plain PyTorch inside:
 functions on tensors, frozen dataclasses for solver configs, explicit
 `device=`/`dtype=` and explicit `torch.Generator`s.  The JAX package's
 Pallas kernels are CUDA C++ kernels for Hopper: the fused Swift-Hohenberg
@@ -46,16 +46,22 @@ check_tf32_off()
 from .core import (BifurcationProblem, BorderedState, ContinuationPar,  # noqa: E402
                    DotTheta, Lens, NewtonPar, as_lens, lens_get, lens_set,
                    setfield)
-from .linalg import (ArnoldiEig, DenseEig, DenseLS, FlatOperator,  # noqa: E402
-                     GMRES, IterativeRefinement, LOBPCGEig, ShiftInvertEig)
+from .linalg import (ArnoldiEig, BiCGStab, BlockJacobiPrecond,  # noqa: E402
+                     DenseEig, DenseGEig, DenseLS, EigenMassMatrix,
+                     FlatOperator, GMRES, IterativeGEig,
+                     IterativeRefinement, LOBPCGEig, PartialSchurPrecond,
+                     ShiftInvertEig, SubspaceEig, dense_gev, gev)
 from .linalg.bordered import (BorderingBLS, LSFromBLS, MatrixBLS,  # noqa: E402
                               MatrixFreeBLS)
 from .newton import (NonLinearSolution, cb_max_norm,  # noqa: E402
                      cb_max_norm_and_dp, newton)
 from .continuation import (AutoSwitch, Bordered, Branch,  # noqa: E402
-                           ContIterable, ContResult, ContState, MoorePenrose,
-                           Multiple, Natural, PALC, Polynomial, Secant,
-                           continuation, merge_branches)
+                           ContIterable, ContResult, ContState, DCResult,
+                           DefCont, MoorePenrose, Multiple, Natural, PALC,
+                           Polynomial, Secant, continuation,
+                           deflated_continuation, merge_branches)
+from .deflation import (DeflationOperator, deflated_newton,  # noqa: E402
+                        deflated_problem)
 from .detection import SpecialPoint  # noqa: E402
 from .ops import BSRMatrix, DIAMatrix, ELLMatrix, dia_spmv  # noqa: E402
 from .normal_forms import (BifDiagNode, bifurcationdiagram,  # noqa: E402
@@ -65,11 +71,16 @@ from .codim2 import (continuation_fold, continuation_fold_mf,  # noqa: E402
                      continuation_hopf, continuation_hopf_mf,
                      fold_ma_problem, fold_ma_problem_mf, hopf_ma_problem,
                      hopf_ma_problem_mf, newton_fold, newton_hopf, refine_gh)
+from .periodic import (FloquetEig, FloquetQaDMF, Trapeze,  # noqa: E402
+                       continuation_from_hopf_point, continuation_hopf_po,
+                       continuation_po, floquet_multipliers,
+                       get_periodic_orbit, newton_po, orbit_from_branch,
+                       periodic_orbit_problem)
 
 __version__ = "0.1.0"
 
 _LAZY_SUBMODULES = ("models", "ops", "linalg", "detection", "continuation",
-                    "normal_forms", "codim2", "core", "interop")
+                    "normal_forms", "codim2", "periodic", "core", "interop")
 
 
 def __getattr__(name):

@@ -4,3 +4,4 @@ from .driver import continuation
 from .engine import ContIterable, ContState
 from .results import Branch, ContResult, merge_branches
 from .tangents import Bordered, Polynomial, Secant
+from .deflated import DCResult, DefCont, deflated_continuation

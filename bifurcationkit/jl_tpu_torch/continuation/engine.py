@@ -161,9 +161,13 @@ class ContIterable:
         are memoized per nev, rounded up to a multiple of 4."""
         kn = self.kernels
         need = state.n_unstable[0] + 5
-        if need <= kn.nev or kn.nev >= kn.n_state:
+        # problems whose spectrum lives on a smaller space (a Floquet
+        # monodromy acts on the vector field's n_vf dof) cap the raise
+        # there with `eig_max_nev`, so it never asks for a useless rebuild
+        cap = min(kn.n_state, getattr(self.prob, "eig_max_nev", kn.n_state))
+        if need <= kn.nev or kn.nev >= cap:
             return
-        new_nev = min(int(-(-need // 4) * 4), kn.n_state)
+        new_nev = min(int(-(-need // 4) * 4), cap)
         if new_nev not in self._kernels_by_nev:
             self._kernels_by_nev[new_nev] = make_kernels(
                 self.prob, self.base_alg, self.contparams, self.norm,
@@ -267,11 +271,14 @@ class ContIterable:
 
     def _can_fuse(self) -> bool:
         """The fused step applies for plain PALC with the Secant tangent,
-        unless the problem opts out (`fuse_step = False`: the matrix-free
+        unless the problem opts out: `fuse_step = False` (the matrix-free
         minimally augmented problems, whose failed steps do not eigensolve
-        the old point, as in the JAX package)."""
+        the old point, as in the JAX package) or `eig_two_stage = True`
+        (structured-jacobian Floquet solvers, whose eigensolve the JAX
+        package keeps out of the fused step)."""
         return (isinstance(self.alg, PALC)
                 and isinstance(getattr(self.alg, "tangent", None), Secant)
+                and not getattr(self.prob, "eig_two_stage", False)
                 and getattr(self.prob, "fuse_step", True))
 
     # ------------------------------------------------------------------

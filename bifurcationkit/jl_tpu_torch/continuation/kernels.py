@@ -310,10 +310,11 @@ def make_kernels(prob, alg, contparams: ContinuationPar,
     n_seed_cols = _seed_cols_fn(nev) if callable(_seed_cols_fn) else None
     # augmented (codim-2) problems give the spectrum-defining inner
     # jacobian separately, on the inner state without the border rows
-    # (ref FoldEig stripping the border, src/codim2/MinAugFold.jl:579-601)
+    # (ref FoldEig stripping the border, src/codim2/MinAugFold.jl:579-601);
+    # a Floquet monodromy acts on the vector field's n_vf dof
     eig_jac = getattr(prob, "eig_jacobian", None)
-    n_eig = (getattr(prob, "n_inner", None) or n_state) if eig_jac \
-        else n_state
+    n_eig = (getattr(prob, "n_vf", None) or getattr(prob, "n_inner", None)
+             or n_state) if eig_jac else n_state
     seed_shape = (n_eig, n_seed_cols) if n_seed_cols else (n_eig,)
     # the symmetry probe costs two matvecs and a sync: run it on the first
     # sweep only (the JAX package skips it inside its jitted step)
@@ -354,7 +355,9 @@ def make_kernels(prob, alg, contparams: ContinuationPar,
         seed_new = eig_seed
         if eig_accepts_v0 and vecs is not None:
             if n_seed_cols:
-                blk = torch.real(vecs[:, :n_seed_cols]).to(seed_dtype)
+                mk = getattr(solver, "make_seed", None)
+                blk = (mk(vecs, n_seed_cols) if callable(mk)
+                       else torch.real(vecs[:, :n_seed_cols])).to(seed_dtype)
                 pad = n_seed_cols - blk.shape[1]
                 if pad > 0:
                     blk = torch.nn.functional.pad(blk, (0, pad))
@@ -399,6 +402,7 @@ def make_kernels(prob, alg, contparams: ContinuationPar,
         n_state=n_state,
         nev=nev,
         theta=theta,
+        is_floquet=getattr(eigsolver, "is_floquet", False),
     )
 
 

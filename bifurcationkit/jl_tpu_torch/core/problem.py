@@ -155,7 +155,8 @@ class BifurcationProblem:
     # hooks that close over the functional and the state shape; carrying
     # them onto a problem with a different F or state shape would apply a
     # stale operator, so `re_make` drops them then
-    _SHAPE_COUPLED_HOOKS = frozenset({"spectral_precond"})
+    _SHAPE_COUPLED_HOOKS = frozenset({"spectral_precond", "batched_F",
+                                      "po_spectral_data"})
 
     def re_make(self, **kwargs):
         """dataclasses.replace + carry over the non-field hooks

@@ -156,3 +156,18 @@ class DotTheta:
 
     def norm_bs(self, a: BorderedState, theta, n: int):
         return self.norm_theta(a.u, a.p, theta, n)
+
+
+def tree_randn_like(gen: torch.Generator, a: Pytree) -> Pytree:
+    """Random normal state with the structure, dtype and device of `a`
+    (ref `_randn`), drawn from the explicit generator `gen` on the CPU and
+    moved to each leaf's device, so a seeded draw is the same on the card
+    and on the CPU."""
+    def draw(leaf):
+        leaf = torch.as_tensor(leaf)
+        dt = leaf.dtype if (leaf.is_floating_point() or leaf.is_complex()) \
+            else torch.float64
+        return torch.randn(tuple(leaf.shape), generator=gen,
+                           dtype=dt).to(leaf.device)
+
+    return tree_map(draw, a)

@@ -86,3 +86,38 @@ def codim2_branch_to_numpy(br) -> Dict[str, np.ndarray]:
     out["sp_param"] = np.asarray([float(sp.param) for sp in sps], dtype=float)
     out["sp_status"] = np.asarray([sp.status for sp in sps], dtype=str)
     return out
+
+
+def po_params_from_numpy(po_par: Dict[str, Any], device,
+                         dtype: torch.dtype = DEFAULT_DTYPE
+                         ) -> Dict[str, Any]:
+    """A periodic-orbit problem's parameters handed over as numpy (the
+    vector field's parameters under `_inner`, the phase condition's
+    reference orbit `_uref` and gradient `_phi`, each (M, n)) as the
+    port's: 0-d tensors under `_inner`, tensors for the rest."""
+    dev = torch.device(device)
+    out = {k: torch.tensor(np.asarray(v), dtype=dtype, device=dev)
+           for k, v in po_par.items() if k != "_inner"}
+    out["_inner"] = {k: torch.tensor(np.asarray(v), dtype=dtype, device=dev)
+                     for k, v in po_par["_inner"].items()}
+    return out
+
+
+def po_branch_to_numpy(br) -> Dict[str, Any]:
+    """The comparable columns of a periodic-orbit branch of either package
+    (a `Branch` or its `ContResult`): per-step `param`, `period`,
+    `n_unstable`, and the Floquet exponents of each saved eigensolve
+    (`floquet`, one row per step, in the solver's order: decreasing real
+    part), and the special points' `type` and `param`."""
+    gamma = getattr(br, "gamma", br)
+    tbl = gamma._table()
+    return {
+        "param": np.asarray(tbl["param"], dtype=float),
+        "period": np.asarray(tbl["period"], dtype=float),
+        "n_unstable": np.asarray(tbl["n_unstable"], dtype=int),
+        "floquet": [np.asarray(e["eigenvals"]) for e in gamma.eig],
+        "sp_type": np.asarray([sp.type for sp in gamma.specialpoint],
+                              dtype=str),
+        "sp_param": np.asarray([float(sp.param)
+                                for sp in gamma.specialpoint], dtype=float),
+    }

@@ -421,6 +421,101 @@ class ArnoldiEig:
                 converged(vals, resid), m * self.restarts)
 
 
+@dataclasses.dataclass(frozen=True)
+class SubspaceEig:
+    """Block orthogonal (subspace) iteration for the largest-modulus part
+    of a NONSYMMETRIC operator spectrum, matrix-free and batched: each
+    sweep applies the operator to the whole (n, b) block in one block
+    call, so an operator whose single application is a long sequential
+    chain — the matrix-free trapeze monodromy, M-1 inner solves per
+    application (`Trapeze.monodromy_operator`, whose block call runs the
+    batched GMRES) — amortizes its launches over the block.  Warm-started
+    from the previous continuation step's block (`v0`) a couple of sweeps
+    converge the dominant multipliers.  Rayleigh-Ritz on the projected
+    (k b, k b) matrix runs on the host with numpy, as the JAX package's
+    CPU route does; a zero or missing `v0` takes a random start from a
+    `torch.Generator` seeded with `seed` (drawn on the CPU and moved to
+    the operator's device, so the card and the CPU start alike)."""
+
+    sweeps: int = 2         # power-iteration warmups (1 = none beyond basis)
+    krylov_blocks: int = 3  # Ritz space = span[Q, AQ, ..., A^{k-1}Q]
+    extra: int = 4          # guard vectors beyond nev
+    tol: float = 1e-6
+    seed: int = 11
+
+    def seed_cols(self, nev: int) -> int:
+        # warm-start block = the previous full block
+        return nev + self.extra
+
+    def make_seed(self, vecs, ncols: int):
+        """Warm-start block from complex Ritz vectors: interleave Re/Im so
+        a conjugate pair contributes its full 2-plane (plain real parts
+        duplicate the pair's column and lose the rotation plane)."""
+        inter = torch.stack([torch.real(vecs), torch.imag(vecs)],
+                            dim=2).reshape(vecs.shape[0], -1)
+        if inter.shape[1] < ncols:
+            inter = torch.nn.functional.pad(
+                inter, (0, ncols - inter.shape[1]))
+        return inter[:, :ncols]
+
+    def __call__(self, J, nev: int, v0=None):
+        _, block, n, dtype, device = _as_flat_matvec(J)
+        b = min(nev + self.extra, n)
+        k = max(1, self.krylov_blocks)
+
+        def opb(Q):                    # (n, c) columns -> (n, c)
+            return block(Q.T.contiguous()).T
+
+        gen = torch.Generator().manual_seed(self.seed)
+        Q_rand = torch.randn((n, b), generator=gen,
+                             dtype=dtype).to(device)
+        Q = Q_rand
+        if v0 is not None:
+            v0 = torch.as_tensor(v0).to(dtype=dtype, device=device)
+            if v0.ndim == 1:
+                v0 = v0[:, None]
+            if v0.shape[1] < b:
+                v0 = torch.cat([v0, Q_rand[:, :b - v0.shape[1]]], dim=1)
+            else:
+                v0 = v0[:, :b]
+            if float(torch.linalg.vector_norm(v0)) > 0:
+                Q = v0
+        Q = torch.linalg.qr(Q)[0]
+        for _ in range(self.sweeps - 1):
+            Q = torch.linalg.qr(opb(Q))[0]
+        # block-Krylov Rayleigh-Ritz: project A onto span[Q, AQ, ...] — each
+        # extra block costs one batched application and squares the
+        # subspace-angle error the plain power sweep would leave
+        blocks = [Q]
+        for _ in range(k - 1):
+            blocks.append(opb(blocks[-1]))
+        B = torch.linalg.qr(torch.cat(blocks, dim=1))[0]
+        Z = opb(B)
+        H = (B.T @ Z).cpu().numpy()              # (k b, k b) projected op
+        w_np, y_np = np.linalg.eig(H)
+        w = torch.as_tensor(w_np.astype(np.complex128), device=device)
+        y = torch.as_tensor(y_np.astype(np.complex128), device=device)
+        # normalize Ritz vectors; residual R = (A - w I)(B y) = Z y - B y w
+        y = y / torch.clamp_min(torch.linalg.vector_norm(y, dim=0,
+                                                         keepdim=True),
+                                torch.finfo(dtype).tiny)
+        By = B.to(COMPLEX_DTYPE) @ y
+        R = Z.to(COMPLEX_DTYPE) @ y - By * w[None, :]
+        resid = torch.linalg.vector_norm(R, dim=0).cpu().numpy()
+        # residual-filtered :LM selection: a Krylov subspace of a nonnormal
+        # operator carries spurious large-modulus Ritz values; rank the
+        # unconverged candidates behind every plausibly-converged one
+        tol_eff = max(self.tol, 50.0 * float(torch.finfo(dtype).eps))
+        plaus = resid < np.maximum(0.05 * np.abs(w_np), 100.0 * tol_eff)
+        rank_mod = np.where(plaus, np.abs(w_np), -resid)
+        order = np.lexsort((-w_np.imag, -rank_mod))
+        sel = torch.as_tensor(order[:nev], device=device)
+        scale = np.maximum(np.abs(w_np[order[:nev]]), 1.0)
+        converged = bool(np.all(resid[order[:nev]] < tol_eff * scale))
+        return (w[sel], By[:, sel], converged,
+                b * (self.sweeps - 1) + B.shape[1])
+
+
 def _accepts_v0(solver) -> bool:
     try:
         return "v0" in inspect.signature(solver).parameters

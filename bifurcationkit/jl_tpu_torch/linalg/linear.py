@@ -139,6 +139,31 @@ class GMRES:
     def solve_two(self, J, r1, r2, a0=0.0, a1=1.0):
         return _sequential_solve_two(self, J, r1, r2, a0=a0, a1=a1)
 
+    def solve_block(self, J_block, rhs, a0=0.0, a1=1.0):
+        """Solve (a0 I + a1 J) x = rhs for every row of `rhs` (k, n) at
+        once (`_gmres_block`).  `J_block` applies J to a (k, n) block of
+        flat vectors and the preconditioner must take such a block too.
+        Returns (X, converged, n_iter) with one entry per row (numpy)."""
+        def matvec(Xb):
+            out = J_block(Xb)
+            if a0 != 0 or a1 != 1:
+                out = a0 * Xb + a1 * out
+            return out
+
+        if self.precond is not None:
+            prec = self.precond
+
+            def matvec_p(Xb):
+                return prec(matvec(Xb))
+
+            X, res, it = _gmres_block(matvec_p, prec(rhs), self.restart,
+                                      self.maxiter, self.rtol, self.atol)
+        else:
+            X, res, it = _gmres_block(matvec, rhs, self.restart,
+                                      self.maxiter, self.rtol, self.atol)
+        b_norm = torch.linalg.vector_norm(rhs, dim=1).cpu().numpy()
+        return X, res <= np.maximum(self.rtol * b_norm, self.atol), it
+
 
 def _torch_to_np_dtype(dtype):
     return np.float32 if dtype == torch.float32 else np.float64
@@ -219,12 +244,165 @@ def _gmres_flat(matvec, b, restart, maxiter, rtol, atol):
     return x, res, nmv
 
 
+def _gmres_block(matvec_block, B, restart, maxiter, rtol, atol):
+    """Restarted GMRES on the k right-hand sides in the rows of B (k, n) at
+    once.  Each column keeps its own Krylov basis, Givens rotations,
+    residual estimate and matvec count, and stops exactly where
+    `_gmres_flat` stops on that column alone: a column that has converged
+    (or spent `maxiter`) is frozen, and `matvec_block` is applied to the
+    (r, n) rows of the columns still running only.  So the JAX package's
+    vmapped `while_loop` GMRES, which freezes a finished lane, and a loop
+    of single-vector calls give each column the same answer.  The CGS2
+    projections run as batched products over the running columns; the
+    Givens updates run on the host, vectorized over the columns, in the
+    working dtype.  Returns (X, final_resnorms, n_matvecs) with numpy
+    arrays of one entry per column."""
+    k, n = B.shape
+    dtype, dev = B.dtype, B.device
+    npdt = _torch_to_np_dtype(dtype)
+    tiny = float(torch.finfo(dtype).tiny)
+    m = min(restart, n)
+    b_norm = torch.linalg.vector_norm(B, dim=1).cpu().numpy().astype(
+        np.float64)
+    tol = np.maximum(rtol * b_norm, atol)
+
+    X = torch.zeros_like(B)
+    res = b_norm.copy()
+    nmv = np.zeros(k, np.int64)
+    done = b_norm <= tol
+    V = torch.empty((k, m + 1, n), dtype=dtype, device=dev)
+    while True:
+        cols = np.nonzero(~done & (nmv < maxiter))[0]
+        if cols.size == 0:
+            break
+        ci = torch.as_tensor(cols, device=dev)
+        R0 = B[ci] - matvec_block(X[ci])
+        beta_t = torch.linalg.vector_norm(R0, dim=1)
+        beta = beta_t.cpu().numpy().astype(np.float64)
+        V[ci, 0] = torch.where(beta_t[:, None] > 0,
+                               R0 / torch.clamp_min(beta_t, tiny)[:, None],
+                               R0)
+        c_ = cols.size
+        Rm = np.zeros((c_, m, m), npdt)
+        cs = np.zeros((c_, m), npdt)
+        sn = np.zeros((c_, m), npdt)
+        g = np.zeros((c_, m + 1), npdt)
+        g[:, 0] = beta.astype(npdt)
+        rc = beta.copy()
+        jc = np.zeros(c_, np.int64)
+        for j in range(m):
+            run = np.nonzero(rc > tol[cols])[0]
+            if run.size == 0:
+                break
+            rows = torch.as_tensor(cols[run], device=dev)
+            W = matvec_block(V[rows, j])
+            # CGS2 on each running column's j+1 filled basis rows
+            Vj = V[rows, :j + 1]
+            h1 = torch.bmm(Vj, W[:, :, None])[:, :, 0]
+            W = W - torch.bmm(h1[:, None, :], Vj)[:, 0]
+            h2 = torch.bmm(Vj, W[:, :, None])[:, :, 0]
+            W = W - torch.bmm(h2[:, None, :], Vj)[:, 0]
+            hlast_t = torch.linalg.vector_norm(W, dim=1)
+            V[rows, j + 1] = torch.where(
+                hlast_t[:, None] > tiny,
+                W / torch.clamp_min(hlast_t, tiny)[:, None], 0.0)
+            h = torch.cat([h1 + h2, hlast_t[:, None]], dim=1).cpu().numpy(
+                ).astype(npdt)
+            csr, snr = cs[run], sn[run]
+            for i in range(j):        # previous rotations
+                hi = csr[:, i] * h[:, i] + snr[:, i] * h[:, i + 1]
+                h[:, i + 1] = -snr[:, i] * h[:, i] + csr[:, i] * h[:, i + 1]
+                h[:, i] = hi
+            denom = np.sqrt(h[:, j] ** 2 + h[:, j + 1] ** 2)
+            safe = np.maximum(denom, npdt(tiny))
+            c = np.where(denom > 0, h[:, j] / safe, npdt(1.0)).astype(npdt)
+            s = np.where(denom > 0, h[:, j + 1] / safe, npdt(0.0)).astype(
+                npdt)
+            h[:, j] = c * h[:, j] + s * h[:, j + 1]
+            cs[run, j], sn[run, j] = c, s
+            gj = g[run, j]
+            g[run, j + 1] = -s * gj
+            g[run, j] = c * gj
+            Rm[run, :j + 1, j] = h[:, :j + 1]
+            rc[run] = np.abs(g[run, j + 1]).astype(np.float64)
+            jc[run] += 1
+        for q, col in enumerate(cols):
+            if jc[q] > 0:
+                y = _back_substitute(Rm[q, :jc[q], :jc[q]], g[q, :jc[q]])
+                X[col] = X[col] + torch.as_tensor(y, device=dev) \
+                    @ V[col, :jc[q]]
+        nmv[cols] += jc + 1
+        res[cols] = rc
+        done[cols] = rc <= tol[cols]
+    return X, res, nmv
+
+
 def _back_substitute(R, g):
     """Upper-triangular solve in R's dtype."""
     y = np.zeros_like(g)
     for i in range(len(g) - 1, -1, -1):
         y[i] = (g[i] - R[i, i + 1:] @ y[i + 1:]) / R[i, i]
     return y
+
+
+# ---------------------------------------------------------------------------
+# BiCGStab — cheaper per-iteration alternative for non-symmetric systems
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class BiCGStab:
+    """Left-preconditioned BiCGStab (two matvecs per iteration), the port
+    of the JAX package's `BiCGStab`; one host sync per iteration reads the
+    residual norm."""
+
+    maxiter: int = 500
+    rtol: float = 1e-8
+    atol: float = 1e-12
+    precond: Optional[Callable] = None
+
+    def __call__(self, J, rhs, a0=0.0, a1=1.0):
+        flat_rhs, unravel = ravel(rhs)
+
+        def matvec(xf):
+            out = shifted_apply(J, unravel(xf), a0, a1)
+            if self.precond is not None:
+                out = self.precond(out)
+            return ravel(out)[0]
+
+        b = flat_rhs
+        if self.precond is not None:
+            b = ravel(self.precond(unravel(flat_rhs)))[0]
+        b_norm = float(torch.linalg.vector_norm(b))
+        tol = max(self.rtol * b_norm, self.atol)
+        tiny = float(torch.finfo(b.dtype).tiny)   # f32-safe division guard
+
+        def guard(d):
+            return torch.where(d == 0, torch.full_like(d, tiny), d)
+
+        x = torch.zeros_like(b)
+        r = b
+        rhat = b
+        p = torch.zeros_like(b)
+        v = torch.zeros_like(b)
+        one = torch.ones((), dtype=b.dtype, device=b.device)
+        rho, alpha, omega = one, one, one
+        k, res = 0, b_norm
+        while res > tol and k < self.maxiter:
+            rho1 = torch.dot(rhat, r)
+            beta = (rho1 / guard(rho)) * (alpha / guard(omega))
+            p = r + beta * (p - omega * v)
+            v = matvec(p)
+            alpha = rho1 / guard(torch.dot(rhat, v))
+            s = r - alpha * v
+            t = matvec(s)
+            omega = torch.dot(t, s) / guard(torch.dot(t, t))
+            x = x + alpha * p + omega * s
+            r = s - omega * t
+            rho = rho1
+            res = float(torch.linalg.vector_norm(r))
+            k += 1
+        return unravel(x), res <= tol, k
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,16 @@
 """Small equilibrium models — the port of the parts of
 `jl_tpu/models/equilibria.py` the port runs (ref examples/*.jl, test
-fixtures): the Chan and Carrier BVPs, the scalar transcritical and
-pitchfork normal forms, the planar Hopf normal form, the 1D
-Brusselator and the Lorenz-84 model.
+fixtures): the Chan BVP (finite differences and Chebyshev collocation) and the
+Carrier BVP, the scalar transcritical and pitchfork normal forms, the
+planar Hopf normal form, the Stuart-Landau oscillator, the 1D
+Brusselator, the Lorenz-84 model and the 2D complex Ginzburg-Landau
+equation.
+
+The Stuart-Landau and cGL2d residuals and their closed-form J.v take a
+leading batch of states natively (`batched_F`), so a periodic orbit's M
+time slices go through F in one call (forward AD through F costs a
+Python decomposition per op that mixes a dual tensor with a plain one,
+so these models ship J.v as `jac_op`).
 
 Each takes `device=` (None means the card, which raises where there is
 none; pass `device="cpu"` to run on the CPU) and `dtype=`; the state and
@@ -41,6 +49,44 @@ def chan(n: int = 101, alpha: float = 3.3, beta: float = 0.01, device=None,
     i = np.arange(1, n + 1)
     u0 = torch.as_tensor((i - 1) * (n - i) / n ** 2 + 0.1, dtype=dtype,
                          device=dev)
+    return BifurcationProblem(
+        F, u0=u0, params=_params({"alpha": alpha, "beta": beta}, dtype, dev),
+        lens="alpha")
+
+
+def chan_spectral(N: int = 31, alpha: float = 3.3, beta: float = 0.01,
+                  device=None, dtype: torch.dtype = DEFAULT_DTYPE):
+    """Chan BVP discretized by Chebyshev collocation (the analog of the
+    reference's ApproxFun variant, ref examples/chan-af.jl): u'' + alpha *
+    Nl(u, b) = 0 on [0, 1], u(0) = u(1) = beta, with the dense spectral
+    differentiation matrix replacing the FD stencil.  Same continuum folds
+    as `chan` at far fewer dofs."""
+    dev = resolve_device(device)
+    # Chebyshev points and differentiation matrix on [-1, 1] (Trefethen)
+    j = np.arange(N + 1)
+    xc = np.cos(np.pi * j / N)
+    c = np.r_[2.0, np.ones(N - 1), 2.0] * (-1.0) ** j
+    Xm = np.tile(xc[:, None], (1, N + 1))
+    dX = Xm - Xm.T
+    D = np.outer(c, 1.0 / c) / (dX + np.eye(N + 1))
+    D -= np.diag(D.sum(axis=1))
+    # map [-1,1] -> [0,1]: x = (1 - xc)/2, d/dx = -2 d/dxc
+    D = -2.0 * D
+    D2 = torch.as_tensor(D @ D, dtype=dtype, device=dev)
+    ends = torch.tensor([0, N], device=dev)
+
+    def Nl(x, b, a=0.5):
+        return 1.0 + (x + a * x ** 2) / (1.0 + b * x ** 2)
+
+    def F(u, par):
+        a, b = par["alpha"], par["beta"]
+        r = D2 @ u + a * Nl(u, b)
+        # the boundary rows, copied into a new tensor (torch.func
+        # differentiates an out-of-place index copy)
+        return r.index_copy(0, ends, u[ends] - b)
+
+    x01 = (1.0 - xc) / 2.0
+    u0 = torch.as_tensor(x01 * (1 - x01) + 0.1, dtype=dtype, device=dev)
     return BifurcationProblem(
         F, u0=u0, params=_params({"alpha": alpha, "beta": beta}, dtype, dev),
         lens="alpha")
@@ -128,6 +174,56 @@ def hopf_normal_2d(p: float = -0.5, omega: float = 1.0, l1: float = -1.0,
                               params=_params({"p": p}, dtype, dev), lens="p")
 
 
+def _batched(prob):
+    """Mark a problem whose F takes a leading batch of states."""
+    object.__setattr__(prob, "batched_F", True)
+    return prob
+
+
+def stuart_landau(r: float = 0.5, mu: float = 0.1, nu: float = 1.0,
+                  c3: float = 1.0, c5: float = 0.0, device=None,
+                  dtype: torch.dtype = DEFAULT_DTYPE):
+    """Stuart-Landau oscillator in real coordinates
+    (ref test/periodic_orbits_function_fd/stuartLandau*.jl):
+    z' = (r + i mu) z - (1 + i nu) c3 |z|^2 z - c5 |z|^4 z.  F and its
+    closed-form J.v (`jac_op`) take a leading batch of states (..., 2)."""
+    dev = resolve_device(device)
+
+    def F(u, par):
+        x, y = u[..., 0], u[..., 1]
+        rr, m, n_ = par["r"], par["mu"], par["nu"]
+        cc3, cc5 = par["c3"], par["c5"]
+        ua = x * x + y * y
+        fre = (rr * x - m * y) - cc3 * ua * (x - n_ * y) - cc5 * ua ** 2 * x
+        fim = (rr * y + m * x) - cc3 * ua * (y + n_ * x) - cc5 * ua ** 2 * y
+        return torch.stack([fre, fim], dim=-1)
+
+    def jac_op(u, par):
+        """J(u) v in closed form; u and v batches broadcast."""
+        x, y = u[..., 0], u[..., 1]
+        rr, m, n_ = par["r"], par["mu"], par["nu"]
+        cc3, cc5 = par["c3"], par["c5"]
+        ua = x * x + y * y
+
+        def op(v):
+            dx, dy = v[..., 0], v[..., 1]
+            dua = 2 * (x * dx + y * dy)
+            dre = (rr * dx - m * dy
+                   - cc3 * (dua * (x - n_ * y) + ua * (dx - n_ * dy))
+                   - cc5 * ua * (2 * dua * x + ua * dx))
+            dim = (rr * dy + m * dx
+                   - cc3 * (dua * (y + n_ * x) + ua * (dy + n_ * dx))
+                   - cc5 * ua * (2 * dua * y + ua * dy))
+            return torch.stack([dre, dim], dim=-1)
+
+        return op
+
+    return _batched(BifurcationProblem(
+        F, u0=torch.tensor([0.01, 0.01], dtype=dtype, device=dev),
+        params=_params({"r": r, "mu": mu, "nu": nu, "c3": c3, "c5": c5},
+                       dtype, dev), lens="r", jac_op=jac_op))
+
+
 def brusselator_1d(n: int = 100, alpha: float = 2.0, beta: float = 5.45,
                    D1: float = 0.008, D2: float = 0.004, l: float = 0.3,
                    device=None, dtype: torch.dtype = DEFAULT_DTYPE):
@@ -185,3 +281,141 @@ def lorenz84(params=None, device=None, dtype: torch.dtype = DEFAULT_DTYPE):
     u0 = torch.tensor([1.2, 0.2, 0.1, 0.0], dtype=dtype, device=dev)
     return BifurcationProblem(F, u0=u0, params=_params(params, dtype, dev),
                               lens="F")
+
+
+def _lap_dirichlet_2d(u, hx2, hy2):
+    """5-point Laplacian over the last two axes with homogeneous Dirichlet
+    closure (zero-padded; ref examples/cGL2d.jl:6-22: plain -2 diagonal at
+    the corners)."""
+    zx = torch.zeros_like(u[..., :1, :])
+    zy = torch.zeros_like(u[..., :1])
+    # shifted copies by concatenation (forward AD of `pad` runs a slow
+    # Python decomposition)
+    ux = torch.cat([zx, u[..., :-1, :]], -2) + torch.cat([u[..., 1:, :], zx],
+                                                         -2)
+    uy = torch.cat([zy, u[..., :-1]], -1) + torch.cat([u[..., 1:], zy], -1)
+    return (ux - 2 * u) / hx2 + (uy - 2 * u) / hy2
+
+
+def dst1(u: torch.Tensor, dim: int) -> torch.Tensor:
+    """DST-I along `dim` through the FFT of the odd extension (length
+    2n+2): the transform that diagonalizes the Dirichlet second difference.
+    It computes in the input's dtype (f32 in, complex64 FFT)."""
+    n = u.shape[dim]
+    z = torch.zeros_like(u.narrow(dim, 0, 1))
+    y = torch.cat([z, u, z, -torch.flip(u, [dim])], dim=dim)
+    return -torch.imag(torch.fft.fft(y, dim=dim).narrow(dim, 1, n)) / 2.0
+
+
+def cgl2d(Nx: int = 41, Ny: int = 21, lx: float = np.pi,
+          ly: float = np.pi / 2, r: float = 0.5, mu: float = 0.1,
+          nu: float = 1.0, c3: float = -1.0, c5: float = 1.0,
+          gamma: float = 0.0, device=None,
+          dtype: torch.dtype = DEFAULT_DTYPE):
+    """2D complex Ginzburg-Landau in real components (ref examples/cGL2d.jl:
+    25-86): state (2, Nx, Ny) fields (u1, u2), Dirichlet Laplacian, Hopf
+    bifurcations in r followed by periodic orbits.  F and its closed-form
+    J.v (`jac_op`) take a leading batch of states (..., 2, Nx, Ny).
+
+    The problem carries `spectral_precond(v, shift=0.0)`, the exact
+    (Delta - shift)^-1 per component in the 2D DST-I basis (f32 only for
+    an f32 input), and `po_spectral_data(r0)`, the per-mode frozen
+    linearization for the trapeze space-time preconditioner
+    (`Trapeze.spectral_precond`)."""
+    dev = resolve_device(device)
+    hx = 2 * lx / Nx
+    hy = 2 * ly / Ny
+    hx2, hy2 = hx * hx, hy * hy
+    n = 2 * Nx * Ny
+
+    def F(u, par):
+        u1, u2 = u[..., 0, :, :], u[..., 1, :, :]
+        rr, m, n_ = par["r"], par["mu"], par["nu"]
+        cc3, cc5, g = par["c3"], par["c5"], par["gamma"]
+        ua = u1 * u1 + u2 * u2
+        f1 = (_lap_dirichlet_2d(u1, hx2, hy2) + rr * u1 - n_ * u2
+              - ua * (cc3 * u1 - m * u2) - cc5 * ua ** 2 * u1 + g)
+        f2 = (_lap_dirichlet_2d(u2, hx2, hy2) + rr * u2 + n_ * u1
+              - ua * (cc3 * u2 + m * u1) - cc5 * ua ** 2 * u2)
+        return torch.stack([f1, f2], dim=-3)
+
+    def jac_op(u, par):
+        """J(u) v in closed form, for u and v of the state's shape or
+        batches of it that broadcast (forward AD through F costs a Python
+        decomposition per op that mixes a dual tensor with a plain one)."""
+        u1, u2 = u[..., 0, :, :], u[..., 1, :, :]
+        rr, m, n_ = par["r"], par["mu"], par["nu"]
+        cc3, cc5 = par["c3"], par["c5"]
+        ua = u1 * u1 + u2 * u2
+        g1 = cc3 * u1 - m * u2
+        g2 = cc3 * u2 + m * u1
+
+        def op(v):
+            v1, v2 = v[..., 0, :, :], v[..., 1, :, :]
+            dua = 2 * (u1 * v1 + u2 * v2)
+            d1 = (_lap_dirichlet_2d(v1, hx2, hy2) + rr * v1 - n_ * v2
+                  - dua * g1 - ua * (cc3 * v1 - m * v2)
+                  - cc5 * ua * (2 * dua * u1 + ua * v1))
+            d2 = (_lap_dirichlet_2d(v2, hx2, hy2) + rr * v2 + n_ * v1
+                  - dua * g2 - ua * (cc3 * v2 + m * v1)
+                  - cc5 * ua * (2 * dua * u2 + ua * v2))
+            return torch.stack([d1, d2], dim=-3)
+
+        return op
+
+    values = {"r": r, "mu": mu, "nu": nu, "c3": c3, "c5": c5,
+              "gamma": gamma}
+    prob = _batched(BifurcationProblem(
+        F, u0=torch.zeros((2, Nx, Ny), dtype=dtype, device=dev),
+        params=_params(values, dtype, dev), lens="r", jac_op=jac_op,
+        record_from_solution=lambda x, p, **k: {
+            "param": p, "norm": torch.linalg.vector_norm(x.reshape(-1)),
+            "norminf": torch.max(torch.abs(x))}))
+
+    # DST-I eigenvalues of the zero-padded Dirichlet second difference
+    mu_x = 2.0 * (np.cos(np.pi * np.arange(1, Nx + 1) / (Nx + 1)) - 1) / hx2
+    mu_y = 2.0 * (np.cos(np.pi * np.arange(1, Ny + 1) / (Ny + 1)) - 1) / hy2
+    sym_np = mu_x[:, None] + mu_y[None, :]
+    sym = {dt: torch.as_tensor(sym_np, dtype=dt, device=dev)
+           for dt in (torch.float64, torch.float32)}
+    scale = 4.0 / ((Nx + 1) * (Ny + 1))
+
+    def dst2(x):
+        return dst1(dst1(x, -2), -1)
+
+    def precond(v, shift=0.0):
+        """(Delta - shift)^-1 per component, on a state, a flat vector or a
+        batch of either."""
+        x = v.reshape(-1, 2, Nx, Ny)
+        t = dst2(x) / (sym[x.dtype] - shift)
+        return (dst2(t) * scale).reshape(v.shape)
+
+    object.__setattr__(prob, "spectral_precond", precond)
+
+    def po_spectral_data(r0: float):
+        """(sym_blocks, to_modes, from_modes) for `Trapeze.spectral_precond`:
+        per DST mode k the frozen cGL linearization
+        [[lam_k + r0, -nu], [nu, lam_k + r0]] (the stand-in for the
+        reference's ILU on the cGL2d PO jacobian, ref
+        examples/cGL2d.jl:211-213).  `to_modes` maps flat slices (..., n)
+        to (..., K, 2) mode pairs, `from_modes` back; both in the input's
+        dtype."""
+        lam = sym_np.reshape(-1)
+        blocks = np.zeros((lam.shape[0], 2, 2))
+        blocks[:, 0, 0] = lam + r0
+        blocks[:, 1, 1] = lam + r0
+        blocks[:, 0, 1] = -values["nu"]
+        blocks[:, 1, 0] = values["nu"]
+
+        def to_modes(v):
+            t = dst2(v.reshape(v.shape[:-1] + (2, Nx, Ny)))
+            return t.reshape(v.shape[:-1] + (2, -1)).transpose(-1, -2)
+
+        def from_modes(w):
+            t = w.transpose(-1, -2).reshape(w.shape[:-2] + (2, Nx, Ny))
+            return (dst2(t) * scale).reshape(w.shape[:-2] + (n,))
+
+        return blocks, to_modes, from_modes
+
+    object.__setattr__(prob, "po_spectral_data", po_spectral_data)
+    return prob

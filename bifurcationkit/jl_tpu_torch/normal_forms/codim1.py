@@ -728,8 +728,7 @@ def get_normal_form(br, ind_bif: int, prob=None, verbose: bool = False,
     if hasattr(prob, "disc"):
         raise NotImplementedError(
             "normal forms on periodic-orbit branches (the Poincare return "
-            "map route) come with the periodic-orbit slice, ROADMAP Queue A "
-            "item 14")
+            "map route) come with ROADMAP Queue A item 14, step 5")
     br = gamma
     sp = br.specialpoint[ind_bif]
     if sp.type == "hopf":

@@ -66,6 +66,27 @@ Phases, one line each (a failing phase raises and the script exits non-zero):
       (the converged witness), matrix-free on the card and on the CPU at
       3 points to 1e-6 relative of it, and a GH or ZH label where, and
       only where, the witness changes sign;
+   g. `po_cgl`: the cGL2d trapezoid periodic orbits of bench.py:620-700
+      at full width (41x21, M = 51: 87,823 unknowns) with the bench's
+      CPU-leg solvers (f64 throughout): the matrix-free Hopf normal form
+      at the exact Hopf point and its predictor, the space-time spectral
+      preconditioner, Floquet by `FloquetQaDMF(SubspaceEig)` over the
+      matrix-free monodromy (a batched GMRES solve per slice); 1 warm and
+      3 timed steps (steps/s, Newton and GMRES iterations, monodromy
+      applications and inner matvecs per Floquet sweep), one more step
+      under torch.profiler (`po_breakdown`), the launches of one
+      application of each preconditioner and of the monodromy; checks:
+      every step converged (Newton 1e-7, none retried), the last point's
+      residual recomputed <= 1e-7, the period within 5 % of T0, the
+      multipliers against the dense trapeze monodromy built on the card
+      and eigensolved on the host: the two dominant ones of the bench's
+      SubspaceEig, and all 8 of a SubspaceEig with 4 sweeps, 4 blocks and
+      8 guard vectors from the same warm block, both ways, to 1e-4 (the
+      bench's settings leave the rest of a cluster of multipliers near
+      0.0102 unconverged); the trivial one within 1e-3 of 1; the same
+      unstable count; neither kernel launched; then the same
+      leg at 21x11 for 2 steps on the card and on the CPU (`po_cgl_small`:
+      (r, T) to 1e-7 relative, multipliers to 1e-5);
 5. check: the flagship's last point is a finite root of F, a 60x40 SH
    branch and a 32-site Brusselator branch on the card match the same
    branches on the CPU, the matrix-free normal form at the 60x40
@@ -89,7 +110,9 @@ Phases, one line each (a failing phase raises and the script exits non-zero):
    the stream and device queries around it.
 
 Then each part's seconds on the host clock (`wall`), the nvidia-smi line,
-one JSON line listing the kernels, and the final JSON line.  Full details
+one JSON line listing the kernels (the po_cgl path launches neither: its
+count is 0 in each kernel's `launches_by_phase`), and the final JSON
+line.  Full details
 go to chiprun_out/chip_smoke.json.
 """
 import dataclasses
@@ -440,11 +463,16 @@ def _kernel_rows(prof):
     return sorted(rows, key=lambda r: -r[1])
 
 
-def _profile(fn):
+def _profile(fn, cuda_only=False):
+    """`fn` under torch.profiler: its CUDA kernel rows and its seconds.
+    `cuda_only` records the card's activity alone, which is all the rows
+    need: on a step of some 200,000 launches the host's op events cost the
+    profiler's post-processing about 90 s."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CUDA] if cuda_only else [
+        ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts) as prof:
         t = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -1493,6 +1521,290 @@ def check_small_codim2():
 
 
 # ---------------------------------------------------------------------------
+# 4g. po_cgl: cGL2d trapezoid periodic orbits, matrix-free Floquet
+# ---------------------------------------------------------------------------
+
+# bench.py:620-700: 41x21 grid, 1,722 vector-field unknowns, M = 51 slices,
+# 87,823 unknowns; depth cut to 1 warm + 3 timed steps (the bench's 2 + 5)
+PO_NX, PO_NY, PO_M = 41, 21, 51
+PO_WARM, PO_TIMED = 1, 3
+PO_SMALL = (21, 11)           # examples/cgl2d.py:24, card against CPU
+PO_FLOQUET_TOL = 1e-4         # SubspaceEig against the dense monodromy
+# the witness solve's SubspaceEig (the bench's: sweeps 2, blocks 3, extra 4)
+PO_WITNESS_EIG = dict(sweeps=4, krylov_blocks=4, extra=8, tol=1e-6)
+PO_SMALL_RTOL, PO_SMALL_MU = 1e-7, 1e-5
+
+
+class BlockLog:
+    """Counts the batched GMRES solves (`linear._gmres_block`) while
+    active: calls, columns and matvecs per column.  In the PO path each
+    call is one slice of a matrix-free monodromy application."""
+
+    def __init__(self):
+        self.calls = self.columns = self.matvecs = 0
+
+    def __enter__(self):
+        self._orig = linear._gmres_block
+
+        def logged(matvec_block, B, *args):
+            out = self._orig(matvec_block, B, *args)
+            self.calls += 1
+            self.columns += int(B.shape[0])
+            self.matvecs += int(np.sum(out[2]))
+            return out
+
+        linear._gmres_block = logged
+        return self
+
+    def __exit__(self, *exc):
+        linear._gmres_block = self._orig
+
+    def snapshot(self):
+        return (self.calls, self.columns, self.matvecs)
+
+
+def _cgl_hopf(Nx, Ny):
+    """The exact Hopf point of the trivial state: r* = -lambda_1(Delta)
+    and omega = nu (bench.py:643-648)."""
+    hx, hy = 2 * np.pi / Nx, np.pi / Ny
+    return -(2 * (np.cos(np.pi / (Nx + 1)) - 1) / hx ** 2
+             + 2 * (np.cos(np.pi / (Ny + 1)) - 1) / hy ** 2)
+
+
+def po_cgl_leg(device, Nx, Ny, max_steps, M=PO_M):
+    """bench.py's po_cgl set-up with its CPU-leg solver settings (f64
+    throughout): the matrix-free Hopf normal form at the exact Hopf point,
+    its predictor, `Trapeze(M)`, the space-time spectral preconditioner at
+    T0, GMRES(30, 300, 1e-9); the monodromy's slice solves GMRES(20, 80,
+    1e-6) with the slice preconditioner; FloquetQaDMF over SubspaceEig;
+    a `ContIterable` after its first point."""
+    from bifurcationkit.jl_tpu_torch.normal_forms.codim1 import (
+        hopf_normal_form_point, hopf_predictor)
+    from bifurcationkit.jl_tpu_torch.periodic.orbits import (
+        _po_contparams, periodic_orbit_problem)
+    from bifurcationkit.jl_tpu_torch.periodic.trapezoid import (
+        slice_spectral_precond)
+
+    base = models.cgl2d(Nx=Nx, Ny=Ny, r=0.1, c3=1.0, device=device)
+    n = 2 * Nx * Ny
+    r_star = _cgl_hopf(Nx, Ny)
+    omega = float(base.params["nu"])
+    hp = hopf_normal_form_point(
+        base, torch.zeros((2, Nx, Ny), dtype=torch.float64, device=device),
+        r_star, omega, matrix_free=True)
+    pred = hopf_predictor(hp, 0.02)
+    disc = bk.Trapeze(M=M)
+    T0 = float(pred["period"])
+    X0 = disc.generate_solution(pred["orbit"], T0, n)
+    blocks, to_m, from_m = base.po_spectral_data(r_star)
+    pre = disc.spectral_precond(n, blocks, to_m, from_m, T0, device=device)
+    mono_pre = slice_spectral_precond(blocks, to_m, from_m,
+                                      T0 / (M - 1) / 2.0, device=device)
+    po = periodic_orbit_problem(
+        base, disc, X0, params=base.set_lens_param(base.params,
+                                                   float(pred["p"])),
+        floquet="qad_mf", floquet_linsolver=bk.GMRES(
+            restart=20, maxiter=80, rtol=1e-6, precond=mono_pre))
+    cp = _po_contparams(bk.ContinuationPar(
+        ds=0.005, dsmax=0.02, dsmin=1e-8, p_min=0.0, p_max=2.5,
+        max_steps=max_steps, nev=8, detect_bifurcation=2,
+        tol_stability=1e-3, save_eigenvectors=False,
+        newton_options=bk.NewtonPar(
+            tol=NEWTON_TOL, max_iterations=20,
+            linsolver=bk.GMRES(restart=30, maxiter=300, rtol=1e-9,
+                               precond=pre),
+            eigsolver=bk.FloquetQaDMF(eigsolver=bk.SubspaceEig(
+                sweeps=2, krylov_blocks=3, extra=4, tol=1e-6)))))
+    it = ContIterable(po, bk.PALC(), cp, kind="PeriodicOrbitCont")
+    state = it.init_state(x0=X0)
+    return dict(it=it, state=state, po=po, disc=disc, n=n, T0=T0,
+                pre=pre, mono_pre=mono_pre, hp=hp, X0=X0)
+
+
+def _po_step(leg):
+    """One PALC step; fails unless it converged to the Newton tolerance
+    at the next engine step (a failed step would be retried smaller)."""
+    it, state = leg["it"], leg["state"]
+    step0 = state.step
+    it.iterate(state)
+    if not (state.converged and state.res <= NEWTON_TOL
+            and state.step == step0 + 1):
+        raise AssertionError(f"po_cgl step {state.step} failed: converged "
+                             f"{state.converged}, residual {state.res}")
+    return dict(step=state.step, p=state.p,
+                T=float(state.z.u[-1]), itnewton=state.itnewton,
+                itlinear=state.itlinear, n_unstable=state.n_unstable[0],
+                multipliers=np.exp(state.eigvals).tolist())
+
+
+def _launches(fn, reps=1):
+    """The CUDA kernels one call of `fn` launches and its seconds, over
+    `reps` calls after a warm one (a short profile can miss the first
+    kernels it should record)."""
+    fn()
+    rows, wall = _profile(lambda: [fn() for _ in range(reps)],
+                          cuda_only=True)
+    return sum(r[2] for r in rows) / reps, wall / reps
+
+
+def po_cgl(card):
+    """The full-width periodic-orbit path: the cGL2d trapeze branch at
+    87,823 unknowns with matrix-free Floquet, timed, profiled and checked
+    (residual, period, Floquet against the dense monodromy, card against
+    CPU at 21x11).  It launches neither hand kernel."""
+    reset_launches()
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    leg = po_cgl_leg(dev, PO_NX, PO_NY, PO_WARM + PO_TIMED + 2)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    n, M, disc = leg["n"], PO_M, leg["disc"]
+    steps, times = [], []
+    with BlockLog() as blog:
+        for k in range(PO_WARM + PO_TIMED):
+            before = blog.snapshot()
+            t = time.perf_counter()
+            rec = _po_step(leg)
+            torch.cuda.synchronize()
+            rec["seconds"] = time.perf_counter() - t
+            after = blog.snapshot()
+            # one Floquet sweep per step: its slice solves, block columns
+            # and inner GMRES matvecs
+            rec["monodromy_applications"] = (after[0] - before[0]) / (M - 1)
+            rec["monodromy_columns"] = (after[1] - before[1]) / (M - 1)
+            rec["monodromy_gmres_matvecs"] = after[2] - before[2]
+            rec["kind"] = "warmup" if k < PO_WARM else "timed"
+            steps.append(rec)
+            phase("po_cgl_step", **rec)
+            if k >= PO_WARM:
+                times.append(rec["seconds"])
+    state, it, po = leg["state"], leg["it"], leg["po"]
+    parts = {"setup": setup_s, "steps": time.perf_counter() - t0 - setup_s}
+    # one more step under torch.profiler
+    t1 = time.perf_counter()
+    rows, wall = _profile(lambda: _po_step(leg), cuda_only=True)
+    parts["profiled_step"] = time.perf_counter() - t1
+    fields, busy = _busy_fields(rows, wall, "sh_jv", times, state.p)
+    phase("po_breakdown", step=state.step, itnewton=state.itnewton,
+          itlinear=state.itlinear, **fields)
+    # launches of one application of each preconditioner and of the
+    # monodromy on a Floquet block
+    t1 = time.perf_counter()
+    gen = torch.Generator(dev).manual_seed(1)
+    v = torch.randn(M * n + 1, dtype=torch.float64, device=dev,
+                    generator=gen)
+    pre_launches, _ = _launches(lambda: leg["pre"](v), reps=3)
+    blk = torch.randn((12, n), dtype=torch.float64, device=dev,
+                      generator=gen)
+    slice_launches, _ = _launches(lambda: leg["mono_pre"](blk), reps=3)
+    par = it.prob.set_lens_param(it._params(), state.p)
+    op = po.eig_jacobian(state.z.u, par)
+    with BlockLog() as one:
+        mono_launches, mono_s = _launches(lambda: op.block(blk))
+    parts["launch_counts"] = time.perf_counter() - t1
+    # the last point: residual recomputed, period, Floquet against the
+    # dense monodromy
+    res = float(torch.linalg.vector_norm(po.F(state.z.u, par)))
+    periods = [s["T"] for s in steps] + [float(state.z.u[-1])]
+    t1 = time.perf_counter()
+    Mn = disc.monodromy(po.prob_vf, state.z.u, par)
+    torch.cuda.synchronize()
+    dense_build_s = time.perf_counter() - t1
+    dense = np.linalg.eigvals(Mn.cpu().numpy())
+    dense_s = time.perf_counter() - t1
+    del Mn
+    # the bench's SubspaceEig settings converge the two dominant
+    # multipliers only (at 41x21 a cluster of more than 12 multipliers
+    # lies within 6e-4 of 0.0102; the solver's own flag says so); a
+    # SubspaceEig with more sweeps and guard vectors from the same warm
+    # block is held to the dense monodromy on all 8, both ways
+    mu = np.exp(state.eigvals)
+    top = dense[np.argsort(-np.abs(dense))[:len(mu)]]
+    witness = bk.FloquetQaDMF(eigsolver=bk.SubspaceEig(**PO_WITNESS_EIG))
+    t1 = time.perf_counter()
+    expo_w, _, cv_w, _ = witness(op, len(mu), v0=state.eig_seed)
+    parts["witness_subspace_eig"] = time.perf_counter() - t1
+    mu_w = np.exp(expo_w.cpu().numpy())
+    gaps = [float(np.min(np.abs(dense - m))) for m in mu_w] + \
+        [float(np.min(np.abs(mu_w - d))) for d in top]
+    bench_gaps = [float(np.min(np.abs(dense - m))) for m in mu]
+    tol_s = it.contparams.tol_stability
+    dense_unstable = int(np.sum(np.log(np.abs(dense)) > tol_s))
+    trivial = float(np.min(np.abs(mu - 1.0)))
+    launches = {"sh_jv": sh_jv_mod.sh_jv.launches,
+                "dia_spmv": dia_spmv.launches}
+    timed = [s for s in steps if s["kind"] == "timed"]
+    phase("po_cgl", unknowns=M * n + 1, vf_unknowns=n, slices=M,
+          setup_s=setup_s, steps_per_s=len(times) / float(np.sum(times)),
+          timed_step_s=times,
+          newton_iterations=[s["itnewton"] for s in timed],
+          gmres_iterations=[s["itlinear"] for s in timed],
+          monodromy_applications_per_sweep=[
+              s["monodromy_applications"] for s in steps],
+          monodromy_gmres_matvecs_per_sweep=[
+              s["monodromy_gmres_matvecs"] for s in steps],
+          precond_launches=pre_launches,
+          slice_precond_launches_12_columns=slice_launches,
+          monodromy_launches_12_columns=mono_launches,
+          monodromy_profiled_s=mono_s,
+          # `_launches` applies it twice (a warm call, then the profiled)
+          monodromy_slice_matvecs_12_columns=one.matvecs / 2,
+          p=[s["p"] for s in steps] + [state.p], T=periods, T0=leg["T0"],
+          residual=res, multipliers=[complex(m) for m in mu],
+          converged_eig=state.converged_eig, dense_gaps_bench=bench_gaps,
+          dense_top=[complex(d) for d in top],
+          witness_multipliers=[complex(m) for m in mu_w],
+          witness_converged=cv_w, dense_gaps=gaps, trivial_gap=trivial,
+          n_unstable=state.n_unstable[0], dense_n_unstable=dense_unstable,
+          dense_build_s=dense_build_s, dense_eig_s=dense_s,
+          parts_s=parts,
+          kernel_launches=launches,
+          peak_mib=torch.cuda.max_memory_allocated() / 2 ** 20,
+          card=repr(card))
+    if not res <= NEWTON_TOL:
+        raise AssertionError(f"po_cgl: the last point's residual {res}")
+    if not max(abs(T / leg["T0"] - 1) for T in periods) <= 0.05:
+        raise AssertionError(f"po_cgl: the period left 5 % of T0: "
+                             f"{periods} against {leg['T0']}")
+    if not (max(gaps) <= PO_FLOQUET_TOL and max(bench_gaps[:2])
+            <= PO_FLOQUET_TOL and trivial <= 1e-3
+            and state.n_unstable[0] == dense_unstable):
+        raise AssertionError(f"po_cgl: SubspaceEig's multipliers against "
+                             f"the dense monodromy: gaps {gaps}, the "
+                             f"bench settings' {bench_gaps}, trivial "
+                             f"{trivial}, n_unstable {state.n_unstable[0]} "
+                             f"against {dense_unstable}")
+    if any(launches.values()):
+        raise AssertionError(f"po_cgl launched a kernel: {launches}")
+    po_cgl_small()
+    return launches
+
+
+def po_cgl_small(steps=2):
+    """The same leg at 21x11 on the card and on the CPU, from the same
+    random start of SubspaceEig (drawn on the CPU): (r, T) to 1e-7
+    relative, the multipliers to 1e-5."""
+    out = {}
+    for dev in (torch.device("cuda"), torch.device("cpu")):
+        t = time.perf_counter()
+        leg = po_cgl_leg(dev, *PO_SMALL, steps + 1)
+        recs = [_po_step(leg) for _ in range(steps)]
+        out[dev.type] = (recs, time.perf_counter() - t)
+    (gpu, gpu_s), (cpu, cpu_s) = out["cuda"], out["cpu"]
+    rel = max(max(abs(a[k] - b[k]) / abs(b[k]) for k in ("p", "T"))
+              for a, b in zip(gpu, cpu))
+    mu_gap = max(float(np.max(np.abs(np.asarray(a["multipliers"])
+                                     - np.asarray(b["multipliers"]))))
+                 for a, b in zip(gpu, cpu))
+    phase("po_cgl_small", grid=f"{PO_SMALL[0]}x{PO_SMALL[1]}", steps=steps,
+          max_rel_gap_pT=rel, max_multiplier_gap=mu_gap, card_s=gpu_s,
+          cpu_s=cpu_s, p=[a["p"] for a in gpu], T=[a["T"] for a in gpu])
+    if not (rel <= PO_SMALL_RTOL and mu_gap <= PO_SMALL_MU):
+        raise AssertionError(f"po_cgl at {PO_SMALL}: the card differs from "
+                             f"the CPU: (r, T) {rel}, multipliers {mu_gap}")
+
+
+# ---------------------------------------------------------------------------
 # 6. timing
 # ---------------------------------------------------------------------------
 
@@ -1772,6 +2084,7 @@ def main():
         "bruss_hopf_curve": walled("bruss_hopf_curve", bruss_hopf_curve,
                                    card, bprob, bbr)}
     dia_launches = sum(dia_phases.values())
+    po_launches = walled("po_cgl", po_cgl, card)
     walled("check_small_nf", lambda: check_small_nf(
         check_outputs(prob, state)))
     walled("check_bruss_small", check_bruss_small)
@@ -1803,7 +2116,8 @@ def main():
         "device_ms": head["device_ms"],
         "device_floor_ms": floor["device_floor_ms"],
         "launches_by_batch": by_batch,
-        "launches_by_phase": sh_phases,
+        # the periodic-orbit path launches neither kernel (checked)
+        "launches_by_phase": {**sh_phases, "po_cgl": po_launches["sh_jv"]},
         "cases": cases,
     }, {
         "name": "dia_spmv", "route": "cuda",
@@ -1817,7 +2131,8 @@ def main():
         "device_floor_ms": floor["device_floor_ms"],
         "library_host_ms": dhead["library_host_ms"],
         "library_device_ms": dhead["library_device_ms"],
-        "launches_by_phase": dia_phases,
+        "launches_by_phase": {**dia_phases,
+                              "po_cgl": po_launches["dia_spmv"]},
         "cases": dia_cases,
     }]
     DETAILS["kernels"] = kernels
