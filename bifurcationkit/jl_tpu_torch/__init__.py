@@ -71,11 +71,14 @@ from .codim2 import (continuation_fold, continuation_fold_mf,  # noqa: E402
                      continuation_hopf, continuation_hopf_mf,
                      fold_ma_problem, fold_ma_problem_mf, hopf_ma_problem,
                      hopf_ma_problem_mf, newton_fold, newton_hopf, refine_gh)
-from .periodic import (FloquetEig, FloquetQaDMF, Trapeze,  # noqa: E402
+from .periodic import (COPBLS, COPLS, Collocation,  # noqa: E402
+                       FloquetColl, FloquetEig, FloquetGEV, FloquetQaDMF,
+                       Flow, PoincareShooting, Shooting, Trapeze,
+                       collocation_block_jacobian,
                        continuation_from_hopf_point, continuation_hopf_po,
                        continuation_po, floquet_multipliers,
-                       get_periodic_orbit, newton_po, orbit_from_branch,
-                       periodic_orbit_problem)
+                       get_periodic_orbit, monodromy_from_maps, newton_po,
+                       orbit_from_branch, periodic_orbit_problem)
 
 __version__ = "0.1.0"
 

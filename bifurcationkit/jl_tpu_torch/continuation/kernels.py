@@ -319,6 +319,13 @@ def make_kernels(prob, alg, contparams: ContinuationPar,
     # the symmetry probe costs two matvecs and a sync: run it on the first
     # sweep only (the JAX package skips it inside its jitted step)
     probe = {"pending": bool(getattr(eigsolver, "symmetry_check", False))}
+    # two-stage eig of structured-jacobian Floquet solvers (FloquetColl):
+    # the device reduces the blocks to a small (n, n) product, the host
+    # eigensolves it in numpy f64 (JAX kernels.py:385-489)
+    eig_host_split = (bool(getattr(prob, "eig_two_stage", False))
+                      and eig_jac is not None
+                      and callable(getattr(eigsolver, "device_reduce", None))
+                      and callable(getattr(eigsolver, "host_eig", None)))
 
     def eig(u, p, params, eig_seed=None):
         """Host-facing eig: numpy complex eigenvalues, the eigenvector
@@ -328,6 +335,13 @@ def make_kernels(prob, alg, contparams: ContinuationPar,
             eig_seed = None          # shape change = nev was auto-raised
         par = set_p(params, p)
         J_hi = None
+        if eig_host_split:
+            reduced = eigsolver.device_reduce(eig_jac(u, par))
+            vals, vecs, cv, _ = eigsolver.host_eig(
+                *reduced, nev, with_vectors=contparams.save_eigenvectors)
+            if vecs is not None:
+                vecs = torch.as_tensor(vecs, device=like.device)
+            return vals, vecs, bool(cv), eig_seed
         if eig_jac is not None:
             J = eig_jac(u, par)
         elif eig_needs_matrix:

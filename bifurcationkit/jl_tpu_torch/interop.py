@@ -91,10 +91,16 @@ def codim2_branch_to_numpy(br) -> Dict[str, np.ndarray]:
 def po_params_from_numpy(po_par: Dict[str, Any], device,
                          dtype: torch.dtype = DEFAULT_DTYPE
                          ) -> Dict[str, Any]:
-    """A periodic-orbit problem's parameters handed over as numpy (the
-    vector field's parameters under `_inner`, the phase condition's
-    reference orbit `_uref` and gradient `_phi`, each (M, n)) as the
-    port's: 0-d tensors under `_inner`, tensors for the rest."""
+    """A periodic-orbit problem's parameters handed over as numpy, as the
+    port's: the vector field's parameters under `_inner` as 0-d tensors,
+    every other entry as a tensor.  That covers each discretization's
+    data: the trapezoid's reference orbit `_uref` and phase gradient
+    `_phi` ((M, n) each); collocation's reference nodes `_uref`
+    ((Ntst m + 1, n)), phase gradient at the Gauss points `_phi`
+    ((Ntst, m, n)) and mesh `_mesh` ((Ntst + 1,)); standard shooting's
+    section point `_xsec` and normal `_phisec` ((n,) each); Poincare
+    shooting's section centers `_centers` and normals `_normals` ((M, n)
+    each) and, event-driven, its return-time hints `_thint` ((M,))."""
     dev = torch.device(device)
     out = {k: torch.tensor(np.asarray(v), dtype=dtype, device=dev)
            for k, v in po_par.items() if k != "_inner"}
@@ -108,7 +114,10 @@ def po_branch_to_numpy(br) -> Dict[str, Any]:
     (a `Branch` or its `ContResult`): per-step `param`, `period`,
     `n_unstable`, and the Floquet exponents of each saved eigensolve
     (`floquet`, one row per step, in the solver's order: decreasing real
-    part), and the special points' `type` and `param`."""
+    part), and the special points' `type` and `param`.  `period` is the
+    discretization's: the last unknown for the trapezoid, collocation and
+    standard shooting, the sum of the return times for Poincare shooting
+    (event-driven: the crossing times at the step)."""
     gamma = getattr(br, "gamma", br)
     tbl = gamma._table()
     return {

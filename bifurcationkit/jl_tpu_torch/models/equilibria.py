@@ -226,11 +226,16 @@ def stuart_landau(r: float = 0.5, mu: float = 0.1, nu: float = 1.0,
 
 def brusselator_1d(n: int = 100, alpha: float = 2.0, beta: float = 5.45,
                    D1: float = 0.008, D2: float = 0.004, l: float = 0.3,
-                   device=None, dtype: torch.dtype = DEFAULT_DTYPE):
+                   device=None, dtype: torch.dtype = DEFAULT_DTYPE,
+                   batched: bool = False):
     """1D Brusselator reaction-diffusion (ref examples/brusselator.jl:26-49,
     par at :93): Dirichlet BCs u=alpha, v=beta/alpha at both ends, h = 1/n,
     continued in the domain length `l`; Hopf bifurcations along the branch.
-    The state is the stacked (u, v) of length 2n."""
+    The state is the stacked (u, v) of length 2n.  `batched=True` marks F
+    as taking a leading batch of states and adds its closed-form J.v
+    (`jac_op`) and d2F (`d2F_user`), state and direction batches
+    broadcasting, which the periodic orbits' batched and variational
+    routes use; by default the problem has none of them."""
     dev = resolve_device(device)
     h = 1.0 / n
 
@@ -238,25 +243,64 @@ def brusselator_1d(n: int = 100, alpha: float = 2.0, beta: float = 5.45,
         a = par["alpha"]
         b = par["beta"]
         ll = par["l"]
-        u = uv[:n]
-        v = uv[n:]
+        u = uv[..., :n]
+        v = uv[..., n:]
         c1 = par["D1"] / (ll ** 2 * h ** 2)
         c2 = par["D2"] / (ll ** 2 * h ** 2)
-        ae = a.reshape(1)
-        ve = (b / a).reshape(1)
-        u_ext = torch.cat([ae, u, ae])
-        v_ext = torch.cat([ve, v, ve])
-        lap_u = u_ext[:-2] - 2 * u_ext[1:-1] + u_ext[2:]
-        lap_v = v_ext[:-2] - 2 * v_ext[1:-1] + v_ext[2:]
+        edge = u.shape[:-1] + (1,)
+        ae = a.expand(edge)
+        ve = (b / a).expand(edge)
+        u_ext = torch.cat([ae, u, ae], -1)
+        v_ext = torch.cat([ve, v, ve], -1)
+        lap_u = u_ext[..., :-2] - 2 * u_ext[..., 1:-1] + u_ext[..., 2:]
+        lap_v = v_ext[..., :-2] - 2 * v_ext[..., 1:-1] + v_ext[..., 2:]
         fu = c1 * lap_u + a - (b + 1) * u + u * u * v
         fv = c2 * lap_v + b * u - u * u * v
-        return torch.cat([fu, fv])
+        return torch.cat([fu, fv], -1)
+
+    def jac_op(uv, par):
+        """J(uv) w in closed form: the Dirichlet second difference of the
+        direction (the boundary values are constants) and the reaction
+        terms' derivative."""
+        b = par["beta"]
+        ll = par["l"]
+        u = uv[..., :n]
+        v = uv[..., n:]
+        c1 = par["D1"] / (ll ** 2 * h ** 2)
+        c2 = par["D2"] / (ll ** 2 * h ** 2)
+        uv2, uu = 2 * u * v, u * u
+
+        def lap0(w):
+            z = torch.zeros_like(w[..., :1])
+            return (torch.cat([z, w[..., :-1]], -1) - 2 * w
+                    + torch.cat([w[..., 1:], z], -1))
+
+        def op(w):
+            du = w[..., :n]
+            dv = w[..., n:]
+            fu = c1 * lap0(du) - (b + 1) * du + uv2 * du + uu * dv
+            fv = c2 * lap0(dv) + b * du - uv2 * du - uu * dv
+            return torch.cat([fu, fv], -1)
+
+        return op
 
     u0 = torch.cat([torch.full((n,), alpha, dtype=dtype, device=dev),
                     torch.full((n,), beta / alpha, dtype=dtype, device=dev)])
     params = _params({"alpha": alpha, "beta": beta, "D1": D1, "D2": D2,
                       "l": l}, dtype, dev)
-    return BifurcationProblem(F, u0=u0, params=params, lens="l")
+
+    def d2F(uv, par, a, b):
+        """d2F(uv)[a, b] in closed form: only the cubic reaction term
+        u^2 v is nonlinear; batches broadcast."""
+        u, v = uv[..., :n], uv[..., n:]
+        au, av, bu, bv = a[..., :n], a[..., n:], b[..., :n], b[..., n:]
+        q = 2 * v * au * bu + 2 * u * (au * bv + av * bu)
+        return torch.cat([q, -q], -1)
+
+    if not batched:
+        return BifurcationProblem(F, u0=u0, params=params, lens="l")
+    return _batched(BifurcationProblem(F, u0=u0, params=params, lens="l",
+                                       jac_op=jac_op, d2F_user=d2F))
 
 
 def lorenz84(params=None, device=None, dtype: torch.dtype = DEFAULT_DTYPE):

@@ -1,0 +1,438 @@
+"""Condensation of parameters — AUTO's collocation linear algebra, the port
+of `jl_tpu/periodic/cop.py` (ref src/periodicorbit/cop.jl).
+
+The collocation jacobian has per-interval block structure: interval j's
+m*n collocation rows couple the local nodes 0..m (node m is shared with
+interval j+1) plus the period column.  COP eliminates the local unknowns
+1..m with one batched pivoted LU over all intervals (stage 1, the
+reference's blockwise elimination, cop.jl:215), leaving an external
+block-bidiagonal system on the interval-boundary unknowns
+(du_0..du_Ntst, dT [, dp]) of size (Ntst+1)*n + 1 [+1], solved dense with
+pivoting (ref cop.jl:322,484).  Solving the external system directly —
+instead of eliminating the boundary unknowns through an unpivoted chain
+product P <- S_j P — keeps full accuracy on strongly unstable orbits,
+where the chain recursion loses digits exactly like the raw monodromy
+product (ref the precision caveat, Floquet.jl:28-31).
+
+`COPBLS` condenses the PALC-bordered system [J dFdp; theta dzu' (1-theta)dzp]
+in the same single pass (ref COPBLS, cop.jl:107): the parameter column and
+the arclength row ride through stage 1 with the period column, so one
+corrector iteration costs one condensation.
+
+Stage 1 factors the (Ntst, m n, m n) blocks with one batched
+`torch.linalg.lu_factor` and solves every column it needs (node 0, the
+period, the rhs, the parameter) with one batched `lu_solve`; the external
+system is one pivoted dense LU.  The mixed-precision solvers factor in a
+low dtype and refine against the f64 structured matvec in Python loops.
+`cop_bc_sigma` and `cop_solve_block`, whose only consumer is the PO
+codim-2 layer, come with ROADMAP Queue A item 14, step 5.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import torch
+
+from ..core.state import ravel
+from ..linalg.bordered import _default_dotp, _dotp_row_scale
+from ..linalg.linear import dense_factor, dense_factor_solve, dense_solve
+from .collocation import (Collocation, gauss_states, interval_blocks,
+                          legendre_tensors)
+from .trapezoid import F_batch, slice_jacobians
+
+
+@dataclasses.dataclass
+class COPBlocks:
+    """Structured collocation jacobian."""
+
+    Aint: Any    # (Ntst, m*n, m*n)  d rows / d local nodes 1..m
+    B0: Any      # (Ntst, m*n, n)    d rows / d local node 0
+    cT: Any      # (Ntst, m*n)       d rows / d T
+    phi0: Any    # (Ntst, n)         phase-row coeff of local node 0
+    phiI: Any    # (Ntst, m*n)       phase-row coeff of local nodes 1..m
+    n: int       # vector-field dimension
+    m: int
+    Ntst: int
+
+    def __call__(self, dX):
+        """The matvec J @ dX."""
+        n, m, Ntst = self.n, self.m, self.Ntst
+        nodes = dX[:-1].reshape(Ntst * m + 1, n)
+        loc = nodes[1:].reshape(Ntst, m * n)         # local nodes 1..m
+        u0 = nodes[:-1:m]                             # local node 0
+        rows = (torch.einsum("jab,jb->ja", self.Aint, loc)
+                + torch.einsum("jan,jn->ja", self.B0, u0)
+                + self.cT * dX[-1])
+        per = nodes[0] - nodes[-1]
+        phase = torch.sum(self.phi0 * u0) + torch.sum(self.phiI * loc)
+        return torch.cat([rows.reshape(-1), per, phase.reshape(1)])
+
+
+def collocation_block_jacobian(disc: Collocation, prob_vf, X, po_par
+                               ) -> COPBlocks:
+    """Analytical block jacobian (ref po_analytical_jacobian,
+    PeriodicOrbitCollocation.jl:646-905):
+    d r_{j,i} / d u_l = dL[l,i] I - alpha_j L[l,i] J(p_{j,i})."""
+    L, dL, wg = legendre_tensors(disc.m, X.dtype, X.device)
+    params = po_par["_inner"]
+    mesh = po_par["_mesh"]
+    n = po_par["_uref"].shape[1]
+    m, Ntst = disc.m, disc.Ntst
+    nodes, T = disc.split(X, n)
+    d = mesh[1:] - mesh[:-1]
+
+    P = gauss_states(L, disc.local_nodes(nodes)).reshape(-1, n)
+    Jp = slice_jacobians(prob_vf, P, params).reshape(Ntst, m, n, n)
+    Fp = F_batch(prob_vf, P, params).reshape(Ntst, m, n)
+    Aint, B0 = interval_blocks(L, dL, Jp, T * d / 2.0)
+    cT = (-(d[:, None, None] / 2.0) * Fp).reshape(Ntst, m * n)
+
+    # phase row: phi(X) = sum_{j,i} w_i (d_j/2) <p_ji - pref_ji, phi_ji>
+    # d/d u_l = sum_i w_i (d_j/2) L[l, i] phi_{j,i}
+    coeff = torch.einsum("i,li,jin->jln", wg, L, po_par["_phi"]) * (
+        d[:, None, None] / 2.0)                           # (Ntst, m+1, n)
+    return COPBlocks(Aint=Aint, B0=B0, cT=cT, phi0=coeff[:, 0, :],
+                     phiI=coeff[:, 1:, :].reshape(Ntst, m * n),
+                     n=n, m=m, Ntst=Ntst)
+
+
+def ravel_vf(prob_vf, x, params):
+    return ravel(prob_vf.F(x, params))[0]
+
+
+def _stage1(blocks: COPBlocks, rc, dRc=None):
+    """Batched pivoted elimination of the interior collocation unknowns
+    (ref condensation_of_parameters2!, cop.jl:215): one batched LU of the
+    (m n) blocks and one batched triangular solve of the node-0 column,
+    the period column, the rhs and optionally the continuation-parameter
+    column.  The last n rows of each reduced quantity give the boundary
+    map du_{j+1} = h_j + S_j du_j + t_j dT [+ tp_j dp].
+    Returns (H, k, G, kp, factorization)."""
+    n = blocks.n
+    fac = dense_factor(blocks.Aint)
+    cols = [blocks.B0, blocks.cT[..., None], rc[..., None]]
+    if dRc is not None:
+        cols.append(dRc[..., None])
+    sol = torch.linalg.lu_solve(*fac, torch.cat(cols, dim=-1))
+    H, k, G = sol[..., :n], sol[..., n], sol[..., n + 1]
+    kp = sol[..., n + 2] if dRc is not None else None
+    return H, k, G, kp, fac
+
+
+def cop_interval_maps(blocks: COPBlocks):
+    """Per-interval fundamental maps S_j (the B_j^-1 A_j couples of the
+    reference's FloquetColl stage, Floquet.jl:625-659):
+    du_{j+1} = S_j du_j on the homogeneous system."""
+    fac = dense_factor(blocks.Aint)
+    H = torch.linalg.lu_solve(*fac, blocks.B0)
+    return -H[:, -blocks.n:, :]                      # (Ntst, n, n)
+
+
+def _external_matrix(blocks: COPBlocks, H, k, kp=None, dR_per=None,
+                     dR_phase=None, border_row=None):
+    """Assemble the (rhs-independent) external matrix on the boundary
+    unknowns y = [du_0..du_Ntst, dT (, dp)] (ref build_external_system!,
+    cop.jl:322).  Rows: Ntst coupling blocks du_{j+1} - S_j du_j - t_j dT
+    (- tp_j dp), n periodicity rows, the phase row, and optionally the
+    PALC arclength row pre-reduced over the local unknowns."""
+    n, Ntst = blocks.n, blocks.Ntst
+    bordered = border_row is not None
+    S = -H[:, -n:, :]
+    t = -k[:, -n:]
+    nb = (Ntst + 1) * n
+    Next = nb + 1 + (1 if bordered else 0)
+    A = torch.zeros((Next, Next), dtype=H.dtype, device=H.device)
+    eye = torch.eye(n, dtype=H.dtype, device=H.device)
+
+    # the coupling block rows, scattered through a (Ntst, n, Ntst+1, n)
+    # view of A's top-left corner
+    C = A[:Ntst * n, :nb].unflatten(0, (Ntst, n)).unflatten(2, (Ntst + 1, n))
+    jidx = torch.arange(Ntst, device=H.device)
+    C[jidx, :, jidx, :] = -S
+    C[jidx, :, jidx + 1, :] = eye
+    A[:Ntst * n, nb] = -t.reshape(-1)
+    A[Ntst * n:nb, :n] = eye
+    A[Ntst * n:nb, Ntst * n:nb] -= eye
+
+    # the phase row after substituting the local unknowns:
+    # coeff(du_j) = phi0_j - phiI_j H_j; coeff(dT) = sum_j -phiI_j k_j
+    A[nb, :Ntst * n] = (blocks.phi0 - torch.einsum(
+        "jr,jrn->jn", blocks.phiI, H)).reshape(-1)
+    A[nb, nb] = -torch.sum(blocks.phiI * k)
+
+    if bordered:
+        pcol = Next - 1
+        A[:Ntst * n, pcol] = kp[:, -n:].reshape(-1)
+        A[Ntst * n:nb, pcol] = dR_per
+        A[nb, pcol] = -torch.sum(blocks.phiI * kp) + dR_phase
+        A[pcol, :] = border_row
+    return A
+
+
+def _external_b(blocks: COPBlocks, G, r_per, r_phase, border_rhs=None):
+    """The rhs of the external system for a reduced rhs G (the constant
+    parts of the phase row move here)."""
+    n = blocks.n
+    parts = [G[:, -n:].reshape(-1), r_per,
+             (r_phase - torch.sum(blocks.phiI * G)).reshape(1)]
+    if border_rhs is not None:
+        parts.append(torch.as_tensor(border_rhs, dtype=G.dtype,
+                                     device=G.device).reshape(1))
+    return torch.cat(parts)
+
+
+def _external_system(blocks: COPBlocks, H, k, G, kp, r_per, r_phase,
+                     dR_per=None, dR_phase=None,
+                     border_row=None, border_rhs=None):
+    """Assemble and solve the external system (ref cop.jl:322,484).
+    Returns (du_bound (Ntst+1, n), dT, dp_or_None)."""
+    n, Ntst = blocks.n, blocks.Ntst
+    bordered = border_row is not None
+    A = _external_matrix(blocks, H, k, kp, dR_per, dR_phase, border_row)
+    b = _external_b(blocks, G, r_per, r_phase,
+                    border_rhs if bordered else None)
+    y = dense_solve(A, b)
+    du_bound = y[:(Ntst + 1) * n].reshape(Ntst + 1, n)
+    return du_bound, y[(Ntst + 1) * n], (y[-1] if bordered else None)
+
+
+def _assemble_nodes(blocks: COPBlocks, H, k, G, kp, du_bound, dT, dp=None):
+    """Back-substitution (batched): the local unknowns from the boundary
+    solution, then the node vector in Collocation layout."""
+    n, Ntst = blocks.n, blocks.Ntst
+    du_loc = (G - torch.einsum("jrn,jn->jr", H, du_bound[:Ntst])
+              - k * dT)                                      # (Ntst, m*n)
+    if dp is not None:
+        du_loc = du_loc - kp * dp
+    # local nodes 1..m of interval j are the global nodes j*m+1..j*m+m
+    return torch.cat([du_bound[0], du_loc.reshape(-1), dT.reshape(1)])
+
+
+def _split_rhs(blocks: COPBlocks, rhs):
+    n, m, Ntst = blocks.n, blocks.m, blocks.Ntst
+    return (rhs[:Ntst * m * n].reshape(Ntst, m * n),
+            rhs[Ntst * m * n: Ntst * m * n + n], rhs[-1])
+
+
+def cop_solve(blocks: COPBlocks, rhs):
+    """Solve J dX = rhs for the collocation jacobian in COP form.  rhs
+    layout as Collocation.residual: [collocation rows (Ntst*m*n),
+    periodicity (n), phase (1)]; returns dX = [nodes (Ntst*m+1)*n, dT]."""
+    rc, r_per, r_phase = _split_rhs(blocks, rhs)
+    H, k, G, _, _ = _stage1(blocks, rc)
+    du_bound, dT, _ = _external_system(blocks, H, k, G, None, r_per,
+                                       r_phase)
+    return _assemble_nodes(blocks, H, k, G, None, du_bound, dT)
+
+
+def _border_reduction(blocks: COPBlocks, H, k, kp, dzu, dzp, xi_u, xi_p,
+                      dot_scale):
+    """Reduce the PALC arclength row over the local unknowns (its
+    rhs-independent part): returns (border_row, wI, s); the G-dependent
+    constant is applied per solve (`- s * <wI, G>`)."""
+    n, m, Ntst = blocks.n, blocks.m, blocks.Ntst
+    dtype = H.dtype
+    w_nodes = dzu[:-1].reshape(Ntst * m + 1, n)
+    w0 = w_nodes[::m]                                      # (Ntst+1, n)
+    # each boundary node (j+1)*m is both interval j's m-th local unknown
+    # and the external unknown du_{j+1}; its weight enters once — through
+    # the external (w0) path
+    wI = w_nodes[1:].reshape(Ntst, m * n).clone()
+    wI[:, -n:] = 0.0
+    # every scalar at the factorization dtype
+    s = torch.as_tensor(xi_u * dot_scale, dtype=dtype, device=H.device)
+    c_du = s * w0
+    c_du[:Ntst] -= s * torch.einsum("jr,jrn->jn", wI, H)
+    c_T = s * (dzu[-1] - torch.sum(wI * k))
+    c_p = -s * torch.sum(wI * kp) + xi_p * torch.as_tensor(
+        dzp, dtype=dtype, device=H.device)
+    border_row = torch.cat([c_du.reshape(-1), c_T.reshape(1),
+                            c_p.reshape(1)])
+    return border_row, wI, s
+
+
+def cop_solve_bordered(blocks: COPBlocks, rhs, rn, dR, dzu, dzp,
+                       xi_u=1.0, xi_p=1.0, dot_scale=1.0):
+    """One-pass bordered condensation (ref COPBLS, cop.jl:107): solve
+
+        | J      dR  | |dX|   |rhs|
+        | c^T    cp  | |dp| = |rn |
+
+    with c = xi_u * dot_scale * dzu (over all unknowns incl. T) and
+    cp = xi_p * dzp.  Returns (dX, dp)."""
+    rc, r_per, r_phase = _split_rhs(blocks, rhs)
+    dRc, dR_per, dR_phase = _split_rhs(blocks, dR)
+    H, k, G, kp, _ = _stage1(blocks, rc, dRc)
+    border_row, wI, s = _border_reduction(blocks, H, k, kp, dzu, dzp,
+                                          xi_u, xi_p, dot_scale)
+    border_rhs = rn - s * torch.sum(wI * G)
+    du_bound, dT, dp = _external_system(
+        blocks, H, k, G, kp, r_per, r_phase,
+        dR_per=dR_per, dR_phase=dR_phase,
+        border_row=border_row, border_rhs=border_rhs)
+    return _assemble_nodes(blocks, H, k, G, kp, du_bound, dT, dp), dp
+
+
+def _cast_blocks(blocks: COPBlocks, dt) -> COPBlocks:
+    return dataclasses.replace(
+        blocks, **{f: getattr(blocks, f).to(dt)
+                   for f in ("Aint", "B0", "cT", "phi0", "phiI")})
+
+
+def cop_factor(blocks: COPBlocks, dRc=None, border=None):
+    """Reusable COP factorization at a fixed jacobian: the batched pivoted
+    block LU, the reduced couplings (H, k [, kp]) and the factored external
+    matrix.  `border = (dzu_flat, dzp, xi_u, xi_p, dot_scale, dR_per,
+    dR_phase)` adds the PALC parameter column and the pre-reduced
+    arclength row.  Factored once in a low dtype, each solve is refined
+    against the f64 structured matvec (`cop_solve_mixed`)."""
+    zeros = torch.zeros_like(blocks.cT)
+    H, k, _, kp, fac = _stage1(blocks, zeros, dRc)
+    border_row = wI = s = dR_per = dR_phase = None
+    if border is not None:
+        dzu, dzp, xi_u, xi_p, dot_scale, dR_per, dR_phase = border
+        border_row, wI, s = _border_reduction(blocks, H, k, kp, dzu, dzp,
+                                              xi_u, xi_p, dot_scale)
+    A = _external_matrix(blocks, H, k, kp, dR_per, dR_phase, border_row)
+    return dict(fac=fac, H=H, k=k, kp=kp, A_fac=dense_factor(A), wI=wI, s=s)
+
+
+def cop_factor_solve(blocks: COPBlocks, F, rhs, rn=None):
+    """Solve with a `cop_factor` factorization: triangular solves, the
+    small external back-substitution and the node assembly, no new
+    factorization.  Returns (dX, dp_or_None)."""
+    n, Ntst = blocks.n, blocks.Ntst
+    rc, r_per, r_phase = _split_rhs(blocks, rhs)
+    G = torch.linalg.lu_solve(*F["fac"], rc[..., None])[..., 0]
+    bordered = F["kp"] is not None
+    border_rhs = (rn - F["s"] * torch.sum(F["wI"] * G)) if bordered \
+        else None
+    y = dense_factor_solve(F["A_fac"],
+                           _external_b(blocks, G, r_per, r_phase, border_rhs))
+    du_bound = y[:(Ntst + 1) * n].reshape(Ntst + 1, n)
+    dT = y[(Ntst + 1) * n]
+    dp = y[-1] if bordered else None
+    return _assemble_nodes(blocks, F["H"], F["k"], G, F["kp"], du_bound, dT,
+                           dp), dp
+
+
+def cop_solve_mixed(blocks: COPBlocks, rhs, low_dtype=torch.float32,
+                    refinements: int = 3, rtol: float = 1e-10,
+                    atol: float = 1e-13):
+    """Mixed-precision COP solve: one factorization in `low_dtype`
+    (stage 1 and the external LU) and f64 residual refinement through the
+    structured matvec.  Returns (x, converged)."""
+    lo = low_dtype
+    blo = _cast_blocks(blocks, lo)
+    F = cop_factor(blo)
+    x = cop_factor_solve(blo, F, rhs.to(lo))[0].to(rhs.dtype)
+    tol = max(rtol * float(torch.linalg.vector_norm(rhs)), atol)
+    rn = float(torch.linalg.vector_norm(rhs - blocks(x)))
+    kk = 0
+    while rn > tol and kk < refinements:
+        d, _ = cop_factor_solve(blo, F, (rhs - blocks(x)).to(lo))
+        x = x + d.to(rhs.dtype)
+        rn = float(torch.linalg.vector_norm(rhs - blocks(x)))
+        kk += 1
+    return x, rn <= tol
+
+
+def cop_solve_bordered_mixed(blocks: COPBlocks, rhs, rn_s, dR, dzu, dzp,
+                             xi_u=1.0, xi_p=1.0, dot_scale=1.0,
+                             low_dtype=torch.float32, refinements: int = 3,
+                             rtol: float = 1e-10, atol: float = 1e-13):
+    """Mixed-precision one-pass bordered condensation (the COPBLS analogue
+    of `cop_solve_mixed`): the low-dtype factorization carries the
+    parameter column and the pre-reduced arclength row; refinement
+    measures the full bordered residual [J dX + dR dp - rhs;
+    <c,dX> + cp dp - rn].  Returns (dX, dp, converged)."""
+    lo = low_dtype
+    dt = rhs.dtype
+    blo = _cast_blocks(blocks, lo)
+    dRc, dR_per, dR_phase = _split_rhs(blocks, dR)
+    F = cop_factor(blo, dRc.to(lo),
+                   border=(dzu.to(lo), float(dzp), xi_u, xi_p, dot_scale,
+                           dR_per.to(lo), dR_phase.to(lo)))
+    x0, dp0 = cop_factor_solve(blo, F, rhs.to(lo),
+                               rn=torch.as_tensor(rn_s).to(lo))
+    x, dp = x0.to(dt), dp0.to(dt)
+    sclu = xi_u * dot_scale
+
+    def resid(x, dp):
+        top = rhs - blocks(x) - dp * dR
+        bot = rn_s - sclu * torch.dot(dzu, x) - xi_p * dzp * dp
+        return top, bot, max(float(torch.linalg.vector_norm(top)),
+                             abs(float(bot)))
+
+    tol = max(rtol * max(float(torch.linalg.vector_norm(rhs)),
+                         abs(float(rn_s))), atol)
+    top, bot, rnorm = resid(x, dp)
+    kk = 0
+    while rnorm > tol and kk < refinements:
+        d, ddp = cop_factor_solve(blo, F, top.to(lo), rn=bot.to(lo))
+        x = x + d.to(dt)
+        dp = dp + ddp.to(dt)
+        top, bot, rnorm = resid(x, dp)
+        kk += 1
+    return x, dp, rnorm <= tol
+
+
+@dataclasses.dataclass(frozen=True)
+class COPLS:
+    """Linear solver consuming the structured `COPBlocks` jacobian (ref
+    COPLS, cop.jl:85).  Use via `periodic_orbit_problem(..., use_cop=True)`
+    and `NewtonPar(linsolver=COPLS())`.  `low_dtype=torch.float32`
+    switches to the mixed-precision solve (low-dtype stage-1 and external
+    factorizations, f64 residual refinement through the structured
+    matvec)."""
+
+    needs_matrix = True   # Newton asks prob.jacobian for the blocks
+    low_dtype: Any = None
+    refinements: int = 3
+    rtol: float = 1e-10
+    atol: float = 1e-13
+
+    def __call__(self, J: COPBlocks, rhs, a0=0.0, a1=1.0):
+        flat, unravel = ravel(rhs)
+        if self.low_dtype is not None:
+            sol, cv = cop_solve_mixed(J, flat, low_dtype=self.low_dtype,
+                                      refinements=self.refinements,
+                                      rtol=self.rtol, atol=self.atol)
+            return unravel(sol), cv, 1 + self.refinements
+        return unravel(cop_solve(J, flat)), True, 1
+
+
+@dataclasses.dataclass(frozen=True)
+class COPBLS:
+    """Bordered linear solver doing one condensation for the whole PALC
+    system (ref COPBLS, cop.jl:107) — the drop-in for BorderingBLS when
+    the jacobian is `COPBlocks`; `continuation_po(..., use_cop=True)` wires
+    it.  `low_dtype=torch.float32` is the mixed-precision condensation
+    (see COPLS)."""
+
+    needs_matrix = True
+    low_dtype: Any = None
+    refinements: int = 3
+    rtol: float = 1e-10
+    atol: float = 1e-13
+
+    def __call__(self, J: COPBlocks, dR, dzu, dzp, R, n, xi_u=1.0,
+                 xi_p=1.0, shift=None, dotp=None):
+        if shift is not None:
+            raise NotImplementedError("COPBLS does not support shifts")
+        dR_flat, _ = ravel(dR)
+        dzu_flat, unravel_state = ravel(dzu)
+        R_flat, _ = ravel(R)
+        scale = _dotp_row_scale(dotp or _default_dotp, dzu,
+                                dzu_flat.shape[0])
+        if self.low_dtype is not None:
+            dX, dp, cv = cop_solve_bordered_mixed(
+                J, R_flat, n, dR_flat, dzu_flat, dzp, xi_u=xi_u, xi_p=xi_p,
+                dot_scale=scale, low_dtype=self.low_dtype,
+                refinements=self.refinements, rtol=self.rtol,
+                atol=self.atol)
+            return unravel_state(dX), dp, cv, 1 + self.refinements
+        dX, dp = cop_solve_bordered(J, R_flat, n, dR_flat, dzu_flat, dzp,
+                                    xi_u=xi_u, xi_p=xi_p, dot_scale=scale)
+        return unravel_state(dX), dp, True, 1

@@ -1,21 +1,19 @@
 """Periodic-orbit orchestration — the port of `jl_tpu/periodic/orbits.py`
 (ref src/periodicorbit/PeriodicOrbits.jl).
 
-Wraps a discretization into an ordinary `BifurcationProblem` over
+Wraps a discretization (Trapeze / Collocation / Shooting /
+PoincareShooting) into an ordinary `BifurcationProblem` over
 X = [orbit dof, T], so Newton, PALC, detection, bisection and events all
 apply unchanged (ref the wrapper problems PeriodicOrbitFunctional*,
 src/Problems.jl:394-425).  Stability comes from the Floquet monodromy via
-the engine's `eig_jacobian` hook; the phase-condition reference orbit is
-refreshed by the update hook through the parameter dict (ref
-updatesection!), which `continuation()` calls after every converged step.
-
-The port has the trapezoid discretization (`Trapeze`).  Collocation
-(with COP and the collocation Floquet solvers) is ROADMAP Queue A item 14,
-step 3, and `Shooting` / `PoincareShooting` step 4: asking for them
-raises `NotImplementedError`.
+the engine's `eig_jacobian` hook; the phase-condition reference orbit (or
+the shooting sections) is refreshed by the update hook through the
+parameter dict (ref updatesection!), which `continuation()` calls after
+every converged step.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import numpy as np
@@ -30,22 +28,11 @@ from ..core.problem import BifurcationProblem
 from ..core.state import ravel, tree_map
 from ..newton import newton
 from ..normal_forms.codim1 import hopf_normal_form, hopf_predictor
-from .floquet import FloquetEig, FloquetQaDMF
+from .collocation import Collocation
+from .cop import COPBLS, COPLS, collocation_block_jacobian
+from .floquet import FloquetColl, FloquetEig, FloquetGEV, FloquetQaDMF
+from .shooting import PoincareShooting, Shooting
 from .trapezoid import Trapeze
-
-_COLLOCATION = ("Collocation and its COP / FloquetColl / FloquetGEV routes "
-                "come with ROADMAP Queue A item 14, step 3")
-
-
-def _check_disc(disc):
-    if not isinstance(disc, Trapeze):
-        name = type(disc).__name__
-        if name in ("Shooting", "PoincareShooting"):
-            raise NotImplementedError(
-                f"{name} comes with ROADMAP Queue A item 14, step 4")
-        raise NotImplementedError(
-            f"{name}: the port has the Trapeze discretization only; "
-            + _COLLOCATION)
 
 
 def _flat_vector_field(prob_vf):
@@ -101,12 +88,12 @@ def periodic_orbit_problem(prob_vf, disc, X0, params=None, uref=None,
                            floquet_linsolver=None,
                            floquet_compute_dtype=None):
     """Build the PO `BifurcationProblem` for a discretization.
-    `floquet="qad"` hands the dense monodromy to the eigensolver,
-    `"qad_mf"` the matrix-free operator (solved with `floquet_linsolver`,
-    at `floquet_compute_dtype` if given)."""
-    _check_disc(disc)
-    if use_cop or floquet in ("coll", "gev"):
-        raise NotImplementedError(_COLLOCATION)
+    `floquet` picks what the engine's `eig_jacobian` hands the Floquet
+    solver: "qad" the dense monodromy, "qad_mf" the matrix-free operator
+    (solved with `floquet_linsolver`, at `floquet_compute_dtype` if
+    given), "coll" the COP blocks (`FloquetColl`), "gev" the interval maps
+    (`FloquetGEV`).  `use_cop=True` makes the jacobian the structured
+    `COPBlocks` (for `COPLS` / `COPBLS`)."""
     params = prob_vf.params if params is None else params
     prob_vf, n = _flat_vector_field(prob_vf)
     expected = disc.unknown_size(n)
@@ -116,10 +103,23 @@ def periodic_orbit_problem(prob_vf, disc, X0, params=None, uref=None,
             f" over a {n}-dim vector field needs {expected} "
             f"(orbit dof + period)")
 
-    u, _ = disc.split(X0, n)
-    u_ref = u if uref is None else uref
-    _, phi = disc.phase_data(prob_vf, u_ref, params)
-    po_par = {"_inner": params, "_uref": u_ref, "_phi": phi}
+    po_par = {"_inner": params}
+    if isinstance(disc, Collocation):
+        mesh = torch.as_tensor(np.linspace(0, 1, disc.Ntst + 1),
+                               dtype=X0.dtype, device=X0.device)
+        nodes, _ = disc.split(X0, n)
+        nodes_ref = nodes if uref is None else uref
+        _, phi = disc.phase_data(prob_vf, nodes_ref, params, mesh)
+        po_par.update({"_uref": nodes_ref, "_phi": phi, "_mesh": mesh})
+    elif isinstance(disc, Trapeze):
+        u, _ = disc.split(X0, n)
+        u_ref = u if uref is None else uref
+        _, phi = disc.phase_data(prob_vf, u_ref, params)
+        po_par.update({"_uref": u_ref, "_phi": phi})
+    elif isinstance(disc, (Shooting, PoincareShooting)):
+        po_par.update(disc.section_data(prob_vf, X0, params))
+    else:
+        raise TypeError(f"unknown discretization {type(disc)}")
 
     inner_lens = as_lens(prob_vf.lens)
     lens = Lens(
@@ -131,26 +131,77 @@ def periodic_orbit_problem(prob_vf, disc, X0, params=None, uref=None,
     def F_po(X, par):
         return disc.residual(prob_vf, X, par)
 
+    is_poincare = isinstance(disc, PoincareShooting)
+    is_poincare_ev = is_poincare and disc.event_driven
+    # event-driven Poincare shooting: the period comes out of the crossing
+    # integration (refreshed by the update hook), not from the unknowns
+    period_cell = {"T": float(torch.sum(po_par["_thint"]))
+                   if is_poincare_ev else None}
+
     def record(X, p, **k):
-        dof = X[:-1]
-        traj = dof.reshape(-1, n)
-        return {"param": p, "period": disc.period(X),
-                "norm": torch.linalg.vector_norm(dof) / np.sqrt(dof.shape[0]),
-                "amplitude": torch.max(traj[:, 0]) - torch.min(traj[:, 0]),
-                "max": torch.max(traj[:, 0]), "min": torch.min(traj[:, 0])}
+        T = period_cell["T"] if is_poincare_ev else disc.period(X)
+        dof = X if is_poincare else X[:-1]
+        out = {"param": p, "period": T,
+               "norm": torch.linalg.vector_norm(dof) / np.sqrt(dof.shape[0])}
+        if not is_poincare:
+            traj = dof.reshape(-1, n)
+            out.update({"amplitude": torch.max(traj[:, 0])
+                        - torch.min(traj[:, 0]),
+                        "max": torch.max(traj[:, 0]),
+                        "min": torch.min(traj[:, 0])})
+        return out
 
     def update(it, state):
-        """Refresh the phase-condition reference to the current orbit
-        (ref updatesection!), with the current parameter value set."""
+        """Refresh the phase-condition reference (or the sections) to the
+        current orbit (ref updatesection!), with the current parameter
+        value set; collocation adapts its mesh here when asked (ref
+        PeriodicOrbitCollocation.jl:1235-1400)."""
         if update_section_every_step <= 0 or \
                 state.step % update_section_every_step != 0:
             return None
         par = it.prob.set_lens_param(it.current_params, float(state.p))
-        u_now, _ = disc.split(state.z.u, n)
-        _, phi_now = disc.phase_data(prob_vf, u_now, par["_inner"])
-        return {**par, "_uref": u_now, "_phi": phi_now}
+        X = state.z.u
+        new = dict(par)
+        if isinstance(disc, Collocation):
+            nodes, T = disc.split(X, n)
+            mesh_now = par["_mesh"]
+            if disc.adapt_mesh:
+                nodes, mesh_now = disc.adapt(nodes, mesh_now)
+                new["_mesh"] = mesh_now
+                state.z = dataclasses.replace(state.z,
+                                              u=disc.pack(nodes, T))
+            _, phi = disc.phase_data(prob_vf, nodes, par["_inner"],
+                                     mesh_now)
+            new.update({"_uref": nodes, "_phi": phi})
+        elif isinstance(disc, Trapeze):
+            u_now, _ = disc.split(X, n)
+            _, phi = disc.phase_data(prob_vf, u_now, par["_inner"])
+            new.update({"_uref": u_now, "_phi": phi})
+        elif is_poincare_ev:
+            new.update(disc.section_data(prob_vf, X, par["_inner"],
+                                         po_par=par))
+            period_cell["T"] = float(torch.sum(new["_thint"]))
+        else:
+            new.update(disc.section_data(prob_vf, X, par["_inner"]))
+        return new
 
-    if floquet == "qad_mf":
+
+    if floquet in ("coll", "gev") and not isinstance(disc, Collocation):
+        raise ValueError(f"floquet='{floquet}' requires Collocation")
+    if floquet == "gev":
+        def eig_jacobian(X, par):
+            return disc.interval_maps(prob_vf, X, par)
+    elif floquet == "coll":
+        # COP-reusing FloquetColl (ref Floquet.jl:533-760): the stability
+        # solve consumes the same structured blocks as the Newton solve
+        def eig_jacobian(X, par):
+            return collocation_block_jacobian(disc, prob_vf, X, par)
+    elif floquet == "qad_mf":
+        if not hasattr(disc, "monodromy_operator"):
+            raise ValueError(
+                "floquet='qad_mf' needs a discretization with a "
+                "monodromy_operator (Shooting or Trapeze)")
+
         def eig_jacobian(X, par):
             if floquet_compute_dtype is not None:
                 X = X.to(floquet_compute_dtype)
@@ -161,18 +212,38 @@ def periodic_orbit_problem(prob_vf, disc, X0, params=None, uref=None,
         def eig_jacobian(X, par):
             return disc.monodromy(prob_vf, X, par)
 
-    # a batched model's J.v gives the PO jacobian in closed form; other
-    # models take the jvp of the residual
-    jac_op = None
-    if prob_vf.jac_op is not None and getattr(prob_vf, "batched_F", False):
+    # closed-form PO jacobians: the trapezoid's operator from a batched
+    # model's J.v; the shooting methods' from the variational flow, dense
+    # as the operator on the identity's columns (one pass of the flow);
+    # the COP blocks; other problems take the jvp of the residual
+    jac = jac_op = None
+    if use_cop:
+        if not isinstance(disc, Collocation):
+            raise ValueError("use_cop requires a Collocation discretization")
+
+        def jac(X, par):
+            return collocation_block_jacobian(disc, prob_vf, X, par)
+    elif isinstance(disc, (Shooting, PoincareShooting)) \
+            and disc._flow(prob_vf).variational:
+        def jac_op(X, par):
+            return disc.jacobian_operator(prob_vf, X, par)
+
+        def jac(X, par):
+            eye = torch.eye(X.shape[0], dtype=X.dtype, device=X.device)
+            return jac_op(X, par)(eye).T
+    if isinstance(disc, Trapeze) and prob_vf.jac_op is not None \
+            and getattr(prob_vf, "batched_F", False):
         def jac_op(X, par):
             return disc.jacobian_operator(prob_vf, X, par)
 
     po_prob = BifurcationProblem(F_po, u0=X0, params=po_par, lens=lens,
-                                 jac_op=jac_op, record_from_solution=record,
-                                 update=update)
+                                 jac=jac, jac_op=jac_op,
+                                 record_from_solution=record, update=update)
     object.__setattr__(po_prob, "eig_jacobian", eig_jacobian)
-    object.__setattr__(po_prob, "eig_two_stage", False)
+    # structured-jacobian Floquet solvers (COP blocks / interval maps):
+    # the blocks and the eigensolve run as two stages, FloquetColl's
+    # eigensolve on the host
+    object.__setattr__(po_prob, "eig_two_stage", floquet in ("coll", "gev"))
     object.__setattr__(po_prob, "disc", disc)
     object.__setattr__(po_prob, "prob_vf", prob_vf)
     object.__setattr__(po_prob, "n_vf", n)
@@ -203,11 +274,29 @@ def newton_po(prob_vf, disc, X0, params=None,
 
 
 def _floquet_mode(contparams: ContinuationPar, floquet=None) -> str:
-    """The `eig_jacobian` flavor matching the configured Floquet solver."""
+    """The `eig_jacobian` flavor matching the configured Floquet solver
+    (FloquetColl wants the COP blocks, FloquetGEV the interval maps)."""
     if floquet is not None:
         return floquet
     eig = contparams.newton_options.eigsolver
-    return "qad_mf" if isinstance(eig, FloquetQaDMF) else "qad"
+    for cls, mode in ((FloquetColl, "coll"), (FloquetGEV, "gev"),
+                      (FloquetQaDMF, "qad_mf")):
+        if isinstance(eig, cls):
+            return mode
+    return "qad"
+
+
+def _cop_solvers(cp: ContinuationPar, alg, use_cop: bool):
+    """With `use_cop`, Newton solves with COPLS and PALC's bordered solves
+    ride the single-pass condensation (ref COPBLS, cop.jl:107): one
+    stage 1 per corrector iteration, not two."""
+    if use_cop:
+        nopts = cp.newton_options
+        if not isinstance(nopts.linsolver, COPLS):
+            cp = cp.replace(newton_options=nopts.replace(linsolver=COPLS()))
+        if isinstance(alg, PALC) and alg.bls is None:
+            alg = dataclasses.replace(alg, bls=COPBLS())
+    return cp, alg
 
 
 def continuation_po(prob_vf, disc, X0, contparams: ContinuationPar,
@@ -220,8 +309,10 @@ def continuation_po(prob_vf, disc, X0, contparams: ContinuationPar,
         floquet=_floquet_mode(contparams, floquet),
         floquet_linsolver=floquet_linsolver,
         floquet_compute_dtype=floquet_compute_dtype)
-    gamma = continuation(po_prob, alg or PALC(), _po_contparams(contparams),
-                         kind="PeriodicOrbitCont", **kwargs)
+    cp, alg = _cop_solvers(_po_contparams(contparams), alg or PALC(),
+                           use_cop)
+    gamma = continuation(po_prob, alg, cp, kind="PeriodicOrbitCont",
+                         **kwargs)
     return Branch(gamma=gamma, bp=None)
 
 
@@ -235,14 +326,10 @@ def continuation_hopf_po(br, ind_hopf: int, contparams: ContinuationPar,
     """Automatic branch switching Hopf -> periodic orbits (ref
     continuation(br, ind_hopf, contparams, disc),
     PeriodicOrbits.jl:395-624): the normal-form predictor seeds the orbit
-    guess.  `nf_kwargs={"matrix_free": True}` computes the seeding Hopf
-    normal form without materializing the jacobian.  The JAX package's
-    default discretization is Collocation, which the port does not have
-    yet: pass a `Trapeze`."""
-    if disc is None:
-        raise NotImplementedError("the default discretization is "
-                                  "Collocation: " + _COLLOCATION
-                                  + "; pass disc=Trapeze(...)")
+    guess; the discretization defaults to `Collocation(Ntst=20, m=4)`.
+    `nf_kwargs={"matrix_free": True}` computes the seeding Hopf normal
+    form without materializing the jacobian."""
+    disc = disc or Collocation(Ntst=20, m=4)
     prob_vf = br.prob
     hp = hopf_normal_form(prob_vf, br, ind_hopf, **(nf_kwargs or {}))
     return _continuation_hopf_pred(
@@ -269,8 +356,10 @@ def _continuation_hopf_pred(prob_vf, hp, contparams, disc, alg=None,
         floquet=_floquet_mode(contparams),
         floquet_linsolver=floquet_linsolver,
         floquet_compute_dtype=floquet_compute_dtype)
-    gamma = continuation(po_prob, alg or PALC(), _po_contparams(contparams),
-                         kind="PeriodicOrbitCont", **kwargs)
+    cp, alg = _cop_solvers(_po_contparams(contparams), alg or PALC(),
+                           use_cop)
+    gamma = continuation(po_prob, alg, cp, kind="PeriodicOrbitCont",
+                         **kwargs)
     return Branch(gamma=gamma, bp=hp)
 
 
@@ -286,13 +375,10 @@ def continuation_from_hopf_point(br_hopf, ind_pt: int,
     src/periodicorbit/PeriodicOrbits.jl:530-601).  `br_hopf` comes from
     `continuation_hopf` run with `save_sol_every_step=1`; `ind_pt` indexes
     its saved solutions; `lens` is the PO continuation's parameter
-    (default: the curve's second parameter, as the reference)."""
+    (default: the curve's second parameter, as the reference); the
+    discretization defaults to `Collocation(Ntst=20, m=4)`."""
     from ..normal_forms.codim1 import hopf_normal_form_point
 
-    if disc is None:
-        raise NotImplementedError("the default discretization is "
-                                  "Collocation: " + _COLLOCATION
-                                  + "; pass disc=Trapeze(...)")
     gamma = br_hopf.gamma if isinstance(br_hopf, Branch) else br_hopf
     maprob = gamma.prob
     if getattr(maprob, "ma_kind", None) != "hopf":
@@ -322,9 +408,11 @@ def continuation_from_hopf_point(br_hopf, ind_pt: int,
         nf_kwargs.setdefault("precond", maprob.precond)
     hp = hopf_normal_form_point(prob_pt, prob_pt.u0, p0, abs(omega),
                                 **nf_kwargs)
-    return _continuation_hopf_pred(prob_pt, hp, contparams, disc, alg=alg,
-                                   delta_p=delta_p, ampfactor=ampfactor,
-                                   use_cop=use_cop, **kwargs)
+    return _continuation_hopf_pred(prob_pt, hp, contparams,
+                                   disc or Collocation(Ntst=20, m=4),
+                                   alg=alg, delta_p=delta_p,
+                                   ampfactor=ampfactor, use_cop=use_cop,
+                                   **kwargs)
 
 
 def get_periodic_orbit(br_po, idx: int = -1):

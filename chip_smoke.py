@@ -87,6 +87,36 @@ Phases, one line each (a failing phase raises and the script exits non-zero):
       unstable count; neither kernel launched; then the same
       leg at 21x11 for 2 steps on the card and on the CPU (`po_cgl_small`:
       (r, T) to 1e-7 relative, multipliers to 1e-5);
+   h. `po_bruss`: the collocation periodic orbits of bench.py:373-438
+      (BENCH_KIND=po) at full width: the 128-site Brusselator's Hopf
+      point and its dense normal form (phases c and d), the predictor at
+      ds 0.02, Collocation(Ntst=30, m=4) (30,977 unknowns), COPLS and
+      COPBLS, FloquetColl through the engine's two-stage eig, f64; 1 warm
+      and 3 timed steps (steps/s, Newton iterations, seconds per step in
+      the per-node jacobians, stage 1, the external solve and the Floquet
+      reduction plus host eig), one more under torch.profiler; checks:
+      every step converged, the last residual recomputed <= 1e-7, the
+      period within 5 % of 2 pi / omega, FloquetColl's 8 multipliers
+      against the dense collocation monodromy to 1e-6 both ways, the
+      trivial one within 1e-4 of 1, the same unstable count, neither
+      kernel launched; then the leg at 32 sites (7,745 unknowns) for 3
+      steps on the card and on the CPU ((l, T) to 1e-9 relative,
+      multipliers to 1e-8) and FloquetGEV against FloquetColl to 1e-6 at
+      16 sites;
+   i. `po_bruss_shooting`: examples/brusselator_shooting.py at its 40
+      sites: standard shooting (Shooting(M=3, 40 steps, rodas3), dense
+      Newton with line search, 4 steps) on the card and the CPU ((l, T)
+      to 1e-8 relative, multipliers to 1e-6), its first period within 0.1
+      of 2 pi / omega, the Collocation(20, 4) + COP branch's periods
+      within 1e-3; event-driven Poincare shooting from its last orbit
+      (converged, period within 1e-3); the collocation orbit on
+      Shooting(M=5, 150 steps) solved by `newton_po`, its matrix-free
+      monodromy with J.v by `brusselator_dia_jac_op` (one `dia_spmv`
+      launch per stage on the block's columns) against the same operator
+      through torch.func.jvp and the dense monodromy to 1e-10 relative,
+      FloquetQaDMF(SubspaceEig) on it against FloquetColl's 4 leading
+      multipliers to 1e-4, the kernel's launches per application and,
+      over one segment, their device time;
 5. check: the flagship's last point is a finite root of F, a 60x40 SH
    branch and a 32-site Brusselator branch on the card match the same
    branches on the CPU, the matrix-free normal form at the 60x40
@@ -110,9 +140,9 @@ Phases, one line each (a failing phase raises and the script exits non-zero):
    the stream and device queries around it.
 
 Then each part's seconds on the host clock (`wall`), the nvidia-smi line,
-one JSON line listing the kernels (the po_cgl path launches neither: its
-count is 0 in each kernel's `launches_by_phase`), and the final JSON
-line.  Full details
+one JSON line listing the kernels (po_cgl and po_bruss launch neither:
+their count is 0 in each kernel's `launches_by_phase`; po_bruss_shooting
+launches dia_spmv only), and the final JSON line.  Full details
 go to chiprun_out/chip_smoke.json.
 """
 import dataclasses
@@ -996,7 +1026,7 @@ def bruss_hopf_nf(card, prob, br):
         raise AssertionError(f"bad Hopf predictor period {pred['period']}")
     if launches <= 0:
         raise AssertionError("the Hopf normal form never launched dia_spmv")
-    return launches
+    return launches, hp_dense
 
 
 def check_small_nf(branches):
@@ -1629,7 +1659,7 @@ def _po_step(leg):
     it.iterate(state)
     if not (state.converged and state.res <= NEWTON_TOL
             and state.step == step0 + 1):
-        raise AssertionError(f"po_cgl step {state.step} failed: converged "
+        raise AssertionError(f"PO step {state.step} failed: converged "
                              f"{state.converged}, residual {state.res}")
     return dict(step=state.step, p=state.p,
                 T=float(state.z.u[-1]), itnewton=state.itnewton,
@@ -1802,6 +1832,512 @@ def po_cgl_small(steps=2):
     if not (rel <= PO_SMALL_RTOL and mu_gap <= PO_SMALL_MU):
         raise AssertionError(f"po_cgl at {PO_SMALL}: the card differs from "
                              f"the CPU: (r, T) {rel}, multipliers {mu_gap}")
+
+
+# ---------------------------------------------------------------------------
+# 4h. po_bruss: collocation periodic orbits with COP and FloquetColl
+# (bench.py:373-438, BENCH_KIND=po) at full width
+# ---------------------------------------------------------------------------
+
+# the 128-site Brusselator (256 unknowns) on Collocation(Ntst=30, m=4):
+# 121 x 256 + 1 = 30,977 unknowns; depth cut to 1 warm + 3 timed steps
+# (the bench's 2 + 4)
+POB_NTST, POB_M = 30, 4
+POB_WARM, POB_TIMED = 1, 3
+POB_SMALL = 32             # the round-5 bench's recorded size: 7,745
+POB_SMALL_STEPS = 3
+POB_GEV = 16               # FloquetGEV's host QZ on N = 30 x 32 = 960
+POB_FLOQUET_TOL = 1e-6     # FloquetColl against the dense witness
+POB_SMALL_RTOL, POB_SMALL_MU = 1e-9, 1e-8
+
+
+def _sync(device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+class PartTimer:
+    """Seconds spent in named functions while active: each call's own
+    time (a part that runs inside another counts for the inner one only),
+    the card synchronised at every boundary.  `targets` are (name, owner,
+    attribute) triples; a name may cover several functions."""
+
+    def __init__(self, targets, device="cuda"):
+        self.targets, self.device = targets, device
+        self.seconds = {name: 0.0 for name, _, _ in targets}
+        self.calls = {name: 0 for name, _, _ in targets}
+        self._stack = []
+
+    def _wrap(self, name, fn):
+        @functools.wraps(fn)
+        def wrapped(*args, **kwargs):
+            _sync(self.device)
+            t = time.perf_counter()
+            self._stack.append(0.0)
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                _sync(self.device)
+                elapsed = time.perf_counter() - t
+                self.seconds[name] += elapsed - self._stack.pop()
+                self.calls[name] += 1
+                if self._stack:
+                    self._stack[-1] += elapsed
+        return wrapped
+
+    def __enter__(self):
+        self._orig = [(owner, attr, getattr(owner, attr))
+                      for _, owner, attr in self.targets]
+        for (name, owner, attr), (_, _, fn) in zip(self.targets, self._orig):
+            setattr(owner, attr, self._wrap(name, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for owner, attr, fn in self._orig:
+            setattr(owner, attr, fn)
+
+
+def _cop_parts(device="cuda"):
+    """The four parts of a collocation step: the per-node jacobians, COP
+    stage 1, the external solve, and FloquetColl's reduction plus its
+    host eig."""
+    from bifurcationkit.jl_tpu_torch.periodic import cop
+
+    return PartTimer([("node_jacobians", cop, "slice_jacobians"),
+                      ("stage1", cop, "_stage1"),
+                      ("external_solve", cop, "_external_system"),
+                      ("floquet", bk.FloquetColl, "device_reduce"),
+                      ("floquet", bk.FloquetColl, "host_eig")], device)
+
+
+def po_bruss_leg(device, sites, hp, max_steps):
+    """bench.py's BENCH_KIND=po set-up (f64, its CPU leg): the Hopf
+    predictor at ds 0.02 from `hp`, Collocation(Ntst=30, m=4), COPLS and
+    COPBLS, FloquetColl through the engine's two-stage eig; a
+    `ContIterable` after its first point.  The model is the batched
+    Brusselator: its closed-form J.v gives the per-node jacobians."""
+    from bifurcationkit.jl_tpu_torch.normal_forms.codim1 import (
+        hopf_predictor)
+    from bifurcationkit.jl_tpu_torch.periodic.orbits import (
+        _po_contparams, periodic_orbit_problem)
+
+    prob = models.brusselator_1d(n=sites, device=device, batched=True)
+    disc = bk.Collocation(Ntst=POB_NTST, m=POB_M)
+    pred = hopf_predictor(hp, 0.02)
+    n = 2 * sites
+    X0 = disc.generate_solution(pred["orbit"], float(pred["period"]), n,
+                                device=device)
+    po = periodic_orbit_problem(
+        prob, disc, X0, params=prob.set_lens_param(prob.params,
+                                                   float(pred["p"])),
+        use_cop=True, floquet="coll")
+    cp = _po_contparams(bk.ContinuationPar(
+        ds=0.01, dsmax=0.02, dsmin=1e-6, p_min=0.29, p_max=0.75,
+        max_steps=max_steps, nev=8, detect_bifurcation=2,
+        tol_stability=1e-3, save_eigenvectors=False,
+        newton_options=bk.NewtonPar(tol=NEWTON_TOL, max_iterations=20,
+                                    linsolver=bk.COPLS(),
+                                    eigsolver=bk.FloquetColl())))
+    it = ContIterable(po, bk.PALC(bls=bk.COPBLS()), cp,
+                      kind="PeriodicOrbitCont")
+    state = it.init_state(x0=X0)
+    return dict(it=it, state=state, po=po, disc=disc, n=n,
+                T_hopf=2 * np.pi / hp.omega)
+
+
+def _floquet_witness(leg):
+    """At the leg's last point: the collocation residual recomputed, the
+    dense witness's multipliers (`Collocation.monodromy`: interval maps by
+    dense solves, their sequential product, a host eig) against
+    FloquetColl's, both ways, the trivial multiplier's gap and the
+    unstable counts."""
+    it, state, po, disc = leg["it"], leg["state"], leg["po"], leg["disc"]
+    par = it.prob.set_lens_param(it._params(), state.p)
+    res = float(torch.linalg.vector_norm(po.F(state.z.u, par)))
+    t = time.perf_counter()
+    Mn = disc.monodromy(po.prob_vf, state.z.u, par)
+    dense = np.linalg.eigvals(Mn.cpu().numpy())
+    witness_s = time.perf_counter() - t
+    mu = np.exp(state.eigvals)
+    top = dense[np.argsort(-np.abs(dense))[:len(mu)]]
+    gaps = [float(np.min(np.abs(dense - m))) for m in mu] + \
+        [float(np.min(np.abs(mu - d))) for d in top]
+    tol_s = it.contparams.tol_stability
+    return dict(residual=res, multipliers=[complex(m) for m in mu],
+                dense_top=[complex(d) for d in top], floquet_gaps=gaps,
+                trivial_gap=float(np.min(np.abs(mu - 1.0))),
+                n_unstable=state.n_unstable[0],
+                dense_n_unstable=int(np.sum(np.log(np.abs(dense)) > tol_s)),
+                witness_s=witness_s), par
+
+
+def po_bruss(card, hp):
+    """The collocation PO path at full width: the 128-site Brusselator's
+    Hopf branch on Collocation(Ntst=30, m=4), 30,977 unknowns, timed by
+    parts, profiled and checked (residual, period, FloquetColl against the
+    dense witness, card against CPU at 32 sites).  It launches neither
+    hand kernel."""
+    reset_launches()
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    leg = po_bruss_leg(dev, BRUSS_SITES, hp, POB_WARM + POB_TIMED + 2)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    steps, times = [], []
+    for k in range(POB_WARM + POB_TIMED):
+        with _cop_parts() as parts:
+            t = time.perf_counter()
+            rec = _po_step(leg)
+            torch.cuda.synchronize()
+            rec["seconds"] = time.perf_counter() - t
+        rec["parts_s"] = dict(parts.seconds)
+        rec["parts_calls"] = dict(parts.calls)
+        rec["kind"] = "warmup" if k < POB_WARM else "timed"
+        steps.append(rec)
+        phase("po_bruss_step", **rec)
+        if k >= POB_WARM:
+            times.append(rec["seconds"])
+    state = leg["state"]
+    t1 = time.perf_counter()
+    rows, wall = _profile(lambda: _po_step(leg), cuda_only=True)
+    profiled_s = time.perf_counter() - t1
+    fields, _ = _busy_fields(rows, wall, "dia_spmv", times, state.p)
+    phase("po_bruss_breakdown", step=state.step, itnewton=state.itnewton,
+          **fields)
+    check, _ = _floquet_witness(leg)
+    periods = [s["T"] for s in steps] + [float(state.z.u[-1])]
+    launches = {"sh_jv": sh_jv_mod.sh_jv.launches,
+                "dia_spmv": dia_spmv.launches}
+    timed = [s for s in steps if s["kind"] == "timed"]
+    n = leg["n"]
+    unknowns = (POB_NTST * POB_M + 1) * n + 1
+    phase("po_bruss", unknowns=unknowns, vf_unknowns=n, Ntst=POB_NTST,
+          m=POB_M, setup_s=setup_s,
+          steps_per_s=len(times) / float(np.sum(times)), timed_step_s=times,
+          newton_iterations=[s["itnewton"] for s in timed],
+          parts_s_per_timed_step={
+              k: float(np.mean([s["parts_s"][k] for s in timed]))
+              for k in timed[0]["parts_s"]},
+          p=[s["p"] for s in steps] + [state.p], T=periods,
+          T_hopf=leg["T_hopf"], profiled_step_wall_s=profiled_s,
+          kernel_launches=launches,
+          peak_mib=torch.cuda.max_memory_allocated() / 2 ** 20,
+          card=repr(card), **check)
+    if unknowns != 30977:
+        raise AssertionError(f"po_bruss runs {unknowns} unknowns")
+    if not check["residual"] <= NEWTON_TOL:
+        raise AssertionError(f"po_bruss: the last point's residual "
+                             f"{check['residual']}")
+    if not max(abs(T / leg["T_hopf"] - 1) for T in periods) <= 0.05:
+        raise AssertionError(f"po_bruss: the period left 5 % of 2 pi / "
+                             f"omega: {periods} against {leg['T_hopf']}")
+    if not (max(check["floquet_gaps"]) <= POB_FLOQUET_TOL
+            and check["trivial_gap"] <= 1e-4
+            and check["n_unstable"] == check["dense_n_unstable"]):
+        raise AssertionError(f"po_bruss: FloquetColl against the dense "
+                             f"witness: {check}")
+    if any(launches.values()):
+        raise AssertionError(f"po_bruss launched a kernel: {launches}")
+    po_bruss_small()
+    return launches
+
+
+def _bruss_hopf_cpu(sites):
+    """The Hopf point and its dense normal form on the CPU: a dense
+    Brusselator branch (bench.py:390-398's settings)."""
+    prob = models.brusselator_1d(n=sites, device="cpu")
+    br = bk.continuation(prob, bk.PALC(), bk.ContinuationPar(
+        ds=0.01, dsmax=0.02, dsmin=1e-6, p_min=0.29, p_max=0.8,
+        max_steps=120, detect_bifurcation=3, nev=8, n_inversion=4,
+        newton_options=bk.NewtonPar(tol=1e-9)))
+    idx = next(i for i, sp in enumerate(br.specialpoint)
+               if sp.type == "hopf")
+    return bk.hopf_normal_form(prob, br, idx)
+
+
+def po_bruss_small():
+    """The same leg at 32 sites (7,745 unknowns) for 3 steps on the card
+    and on the CPU from one Hopf normal form: (l, T) to 1e-9 relative,
+    the multipliers to 1e-8.  Then the third route at 16 sites (the host
+    QZ of the 32-site pencil, N = 1,920, takes minutes): FloquetGEV on the
+    card's interval maps against FloquetColl to 1e-6."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)          # small tensors: threads contend
+    try:
+        hp = _bruss_hopf_cpu(POB_SMALL)
+        out = {}
+        for dev in (torch.device("cuda"), torch.device("cpu")):
+            t = time.perf_counter()
+            leg = po_bruss_leg(dev, POB_SMALL, hp, POB_SMALL_STEPS + 1)
+            recs = [_po_step(leg) for _ in range(POB_SMALL_STEPS)]
+            out[dev.type] = (recs, time.perf_counter() - t)
+        hp_gev = _bruss_hopf_cpu(POB_GEV)
+    finally:
+        torch.set_num_threads(threads)
+    (gpu, gpu_s), (cpu, cpu_s) = out["cuda"], out["cpu"]
+    rel = max(max(abs(a[k] - b[k]) / abs(b[k]) for k in ("p", "T"))
+              for a, b in zip(gpu, cpu))
+    mu_gap = max(float(np.max(np.abs(np.asarray(a["multipliers"])
+                                     - np.asarray(b["multipliers"]))))
+                 for a, b in zip(gpu, cpu))
+    # the third route: FloquetGEV's pencil on the same interval maps
+    t = time.perf_counter()
+    leg = po_bruss_leg(torch.device("cuda"), POB_GEV, hp_gev, 2)
+    _po_step(leg)
+    it, state, po, disc = leg["it"], leg["state"], leg["po"], leg["disc"]
+    par = it.prob.set_lens_param(it._params(), state.p)
+    expo_g, _, _, _ = bk.FloquetGEV()(
+        disc.interval_maps(po.prob_vf, state.z.u, par), 8)
+    gev_s = time.perf_counter() - t
+    mu_c = np.exp(state.eigvals)
+    mu_g = np.exp(expo_g.cpu().numpy())
+    gev_gap = max(float(np.min(np.abs(mu_g - m))) for m in mu_c)
+    phase("po_bruss_small", sites=POB_SMALL, steps=POB_SMALL_STEPS,
+          unknowns=(POB_NTST * POB_M + 1) * 2 * POB_SMALL + 1,
+          max_rel_gap_pT=rel, max_multiplier_gap=mu_gap, card_s=gpu_s,
+          cpu_s=cpu_s, p=[a["p"] for a in gpu], T=[a["T"] for a in gpu],
+          gev_sites=POB_GEV, gev_gap=gev_gap, gev_s=gev_s)
+    if not (rel <= POB_SMALL_RTOL and mu_gap <= POB_SMALL_MU):
+        raise AssertionError(f"po_bruss at {POB_SMALL} sites: the card "
+                             f"differs from the CPU: (l, T) {rel}, "
+                             f"multipliers {mu_gap}")
+    if not gev_gap <= POB_FLOQUET_TOL:
+        raise AssertionError(f"po_bruss at {POB_GEV} sites: FloquetGEV "
+                             f"differs from FloquetColl by {gev_gap}")
+
+
+# ---------------------------------------------------------------------------
+# 4i. po_bruss_shooting: flows, standard and Poincare shooting, and the
+# matrix-free monodromy through dia_spmv (examples/brusselator_shooting.py)
+# ---------------------------------------------------------------------------
+
+SH_SITES = 40              # the example's own size: 80 unknowns
+SH_STEPS = 4               # the example's 15 branch steps cut to 4
+SH_RTOL, SH_MU = 1e-8, 1e-6
+SH_MF_RTOL = 1e-10         # the MF monodromy against its references
+# 4 block applications of the operator (the witness settings of po_cgl
+# take 7 for the same 1e-7 gap on the CPU rehearsal)
+SH_MF_EIG = dict(sweeps=2, krylov_blocks=3, extra=4, tol=1e-8)
+
+
+def _bruss_branch(device, sites):
+    """The example's equilibrium branch (dense solvers, nev 12) on the
+    batched Brusselator."""
+    return bk.continuation(
+        models.brusselator_1d(n=sites, device=device, batched=True),
+        bk.PALC(), bk.ContinuationPar(
+            ds=0.01, dsmax=0.02, dsmin=1e-6, p_min=0.29, p_max=0.8,
+            max_steps=120, detect_bifurcation=3, nev=12, n_inversion=4,
+            newton_options=bk.NewtonPar(tol=1e-9)))
+
+
+def _shooting_cp(linesearch=True):
+    return bk.ContinuationPar(
+        ds=0.01, dsmax=0.03, dsmin=1e-6, p_min=0.29, p_max=0.75,
+        max_steps=SH_STEPS, detect_bifurcation=2, nev=8,
+        tol_stability=1e-3, newton_options=bk.NewtonPar(
+            tol=NEWTON_TOL, max_iterations=25, linesearch=linesearch))
+
+
+def shooting_leg(device, sites=SH_SITES):
+    """The example's standard-shooting branch (Shooting(M=3,
+    steps_per_segment=40, method="rodas3"), dense Newton with line search)
+    from the Hopf point; its first period against 2 pi / omega."""
+    t = time.perf_counter()
+    br = _bruss_branch(device, sites)
+    ih = next(i for i, sp in enumerate(br.specialpoint)
+              if sp.type == "hopf")
+    br_po = bk.continuation_hopf_po(
+        br, ih, _shooting_cp(), delta_p=0.02,
+        disc=bk.Shooting(M=3, steps_per_segment=40, method="rodas3"))
+    ev = np.asarray(br.specialpoint[ih].eigenvals)
+    omega = abs(float(np.imag(ev[np.argmin(np.abs(ev.real))])))
+    return dict(br=br, ih=ih, br_po=br_po, omega=omega,
+                seconds=time.perf_counter() - t)
+
+
+def po_bruss_shooting(card):
+    """examples/brusselator_shooting.py at 40 sites on the card: standard
+    shooting (card against CPU, against collocation), Poincare shooting,
+    and the matrix-free shooting monodromy with its J.v through dia_spmv
+    (against the torch.func route, the dense monodromy and FloquetColl)."""
+    reset_launches()
+    dev = torch.device("cuda")
+    leg = shooting_leg(dev)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)          # small tensors: threads contend
+    try:
+        leg_cpu = shooting_leg(torch.device("cpu"))
+    finally:
+        torch.set_num_threads(threads)
+    a = interop.po_branch_to_numpy(leg["br_po"])
+    b = interop.po_branch_to_numpy(leg_cpu["br_po"])
+    same_len = len(a["param"]) == len(b["param"])
+    rel = max(float(np.max(np.abs(a[k] - b[k]) / np.abs(b[k])))
+              for k in ("param", "period")) if same_len else float("inf")
+    mu_gap = max(float(np.max(np.abs(np.exp(x) - np.exp(y))))
+                 for x, y in zip(a["floquet"], b["floquet"]))
+    T_hopf = 2 * np.pi / leg["omega"]
+    # the same branch by collocation + COP (no line search)
+    t = time.perf_counter()
+    br_cl = bk.continuation_hopf_po(
+        leg["br"], leg["ih"], _shooting_cp(linesearch=False),
+        delta_p=0.02, disc=bk.Collocation(Ntst=20, m=4), use_cop=True)
+    coll_s = time.perf_counter() - t
+    c = interop.po_branch_to_numpy(br_cl)
+    lo = max(a["param"].min(), c["param"].min())
+    hi = min(a["param"].max(), c["param"].max())
+    ps = np.linspace(lo, hi, 5)
+    oa, oc = np.argsort(a["param"]), np.argsort(c["param"])
+    coll_gap = float(np.max(np.abs(
+        np.interp(ps, a["param"][oa], a["period"][oa])
+        - np.interp(ps, c["param"][oc], c["period"][oc])))) \
+        if hi > lo else float("inf")
+    phase("po_bruss_shooting_branch", sites=SH_SITES, steps=SH_STEPS,
+          p=a["param"].tolist(), T=a["period"].tolist(),
+          n_unstable=a["n_unstable"].tolist(), card_s=leg["seconds"],
+          cpu_s=leg_cpu["seconds"], max_rel_gap_pT=rel,
+          max_multiplier_gap=mu_gap, T_hopf=T_hopf,
+          collocation_gap=coll_gap, collocation_s=coll_s)
+    if not (same_len and rel <= SH_RTOL and mu_gap <= SH_MU):
+        raise AssertionError(f"po_bruss_shooting: the card's branch "
+                             f"differs from the CPU's: (l, T) {rel}, "
+                             f"multipliers {mu_gap}")
+    if not abs(a["period"][0] - T_hopf) <= 0.1:
+        raise AssertionError(f"po_bruss_shooting: first period "
+                             f"{a['period'][0]} against {T_hopf}")
+    if not coll_gap <= 1e-3:
+        raise AssertionError(f"po_bruss_shooting: shooting and collocation "
+                             f"periods differ by {coll_gap}")
+    poincare = _poincare_from(leg, dev)
+    mf = _mf_monodromy(br_cl, dev)
+    launches = {"sh_jv": sh_jv_mod.sh_jv.launches,
+                "dia_spmv": dia_spmv.launches}
+    phase("po_bruss_shooting", kernel_launches=launches, card=repr(card),
+          **poincare, **mf)
+    if launches["sh_jv"] or launches["dia_spmv"] <= 0:
+        raise AssertionError(f"po_bruss_shooting: launches {launches}")
+    return launches
+
+
+def _poincare_from(leg, dev):
+    """Event-driven Poincare shooting (PoincareShooting(M=1,
+    steps_per_segment=150, method="rodas3")) Newton from the branch's last
+    orbit (examples/brusselator_shooting.py): converged, and its period
+    (`period_par`) within 1e-3 of standard shooting's."""
+    orb = bk.get_periodic_orbit(leg["br_po"], -1)
+    prob = models.brusselator_1d(n=SH_SITES, device=dev, batched=True)
+    psh = bk.PoincareShooting(M=1, steps_per_segment=150, method="rodas3",
+                              event_driven=True)
+    u = orb["u"]
+    X0 = psh.generate_solution(
+        lambda t: u[int(t / (2 * np.pi) * (u.shape[0] - 1))],
+        float(orb["period"]), 2 * SH_SITES, device=dev)
+    t = time.perf_counter()
+    sol, po = bk.newton_po(prob, psh, X0,
+                           params=prob.set_lens_param(prob.params, orb["p"]),
+                           options=bk.NewtonPar(tol=1e-8, max_iterations=30))
+    T = float(psh.period_par(po.prob_vf, sol.u, po.params))
+    out = dict(poincare_converged=sol.converged,
+               poincare_newton=sol.itnewton, poincare_T=T,
+               poincare_T_gap=abs(T - orb["period"]),
+               poincare_s=time.perf_counter() - t)
+    if not (sol.converged and out["poincare_T_gap"] <= 1e-3):
+        raise AssertionError(f"po_bruss_shooting: Poincare shooting {out}")
+    return out
+
+
+def _mf_monodromy(br_cl, dev):
+    """test_floquet_mf.py:77-129 at 40 sites: the collocation orbit's last
+    point interpolated onto Shooting(M=5, steps_per_segment=150) (dopri5)
+    and solved by `newton_po`; its matrix-free monodromy with J.v by
+    `brusselator_dia_jac_op` (one dia_spmv launch per stage on the block's
+    columns) against the same operator through torch.func.jvp and the
+    dense `Shooting.monodromy` to 1e-10 relative, and
+    FloquetQaDMF(SubspaceEig) on it against FloquetColl's 4 leading
+    multipliers to 1e-4."""
+    from bifurcationkit.jl_tpu_torch.periodic.cop import (
+        collocation_block_jacobian)
+
+    gam = br_cl.gamma
+    disc_c = gam.prob.disc
+    Xc, p_at = gam.sol[-1]["x"], float(gam.sol[-1]["p"])
+    par_c = gam.prob.set_lens_param(gam.prob.params, p_at)
+    expo_c, _, _, _ = bk.FloquetColl()(collocation_block_jacobian(
+        disc_c, gam.prob.prob_vf, Xc, par_c), 4)
+    mult_c = np.sort(np.abs(np.exp(expo_c.cpu().numpy())))[::-1]
+    n = 2 * SH_SITES
+    nodes, T = disc_c.split(Xc, n)
+    disc = bk.Shooting(M=5, steps_per_segment=150)
+    X0 = disc.generate_solution(
+        lambda t: disc_c.interpolate(nodes, par_c["_mesh"],
+                                     (t / (2 * np.pi)) % 1.0),
+        float(T), n, device=dev)
+    inner = par_c["_inner"]
+    vf = models.brusselator_1d(n=SH_SITES, device=dev,
+                               batched=True).re_make(params=inner)
+    t = time.perf_counter()
+    sol, po = bk.newton_po(vf, disc, X0, options=bk.NewtonPar(
+        tol=1e-10, max_iterations=25))
+    newton_s = time.perf_counter() - t
+    if not sol.converged:
+        raise AssertionError("po_bruss_shooting: the M = 5 shooting Newton "
+                             "did not converge")
+    plain = models.brusselator_1d(n=SH_SITES, device=dev).re_make(
+        params=inner)
+    op_vf = plain.re_make(jac_op=brusselator_dia_jac_op(SH_SITES))
+    op = disc.monodromy_operator(op_vf, sol.u, po.params)
+    V = torch.as_tensor(np.random.default_rng(4).standard_normal((8, n)),
+                        device=dev)
+    before = dia_spmv.launches
+    t = time.perf_counter()
+    got = op.block(V)
+    torch.cuda.synchronize()
+    apply_s = time.perf_counter() - t
+    per_application = dia_spmv.launches - before
+    # the kernel's device time: one segment's variational flow under the
+    # profiler (the application's 5 segments differ only in their states;
+    # profiling all of its ~200,000 kernels costs the profiler's
+    # post-processing about 40 s)
+    u, T = disc.split(sol.u, n)
+    seg = disc._flow(op_vf)
+    rows, _ = _profile(lambda: seg.jvp(u[0], inner, T / disc.M, V),
+                       cuda_only=True)
+    mine = [r for r in rows if "dia_spmv_kernel" in r[0]]
+    t = time.perf_counter()
+    ref_ad = disc.monodromy_operator(plain, sol.u, po.params).block(V)
+    ad_s = time.perf_counter() - t
+    Mn = disc.monodromy(vf, sol.u, po.params)
+    scale = float(torch.abs(ref_ad).max())
+    gap_ad = float(torch.abs(got - ref_ad).max()) / scale
+    gap_dense = float(torch.abs(got - V @ Mn.T).max()) / scale
+    t = time.perf_counter()
+    expo, _, cv, _ = bk.FloquetQaDMF(eigsolver=bk.SubspaceEig(
+        **SH_MF_EIG))(op, 4)
+    eig_s = time.perf_counter() - t
+    mult = np.sort(np.abs(np.exp(expo.cpu().numpy())))[::-1]
+    out = dict(mf_newton=sol.itnewton, mf_newton_s=newton_s,
+               mf_dia_launches_per_application=per_application,
+               mf_dia_device_s_one_segment=sum(r[1] for r in mine) * 1e-6,
+               mf_dia_calls_one_segment=sum(r[2] for r in mine),
+               mf_kernels_one_segment=sum(r[2] for r in rows),
+               mf_device_busy_s_one_segment=sum(r[1] for r in rows) * 1e-6,
+               mf_application_s=apply_s, mf_torch_func_s=ad_s,
+               mf_gap_torch_func=gap_ad, mf_gap_dense=gap_dense,
+               mf_multipliers=mult.tolist(),
+               floquet_coll_multipliers=mult_c.tolist(),
+               mf_floquet_gap=float(np.max(np.abs(mult - mult_c))),
+               mf_subspace_converged=cv, mf_eig_s=eig_s)
+    if not (gap_ad <= SH_MF_RTOL and gap_dense <= SH_MF_RTOL):
+        raise AssertionError(f"po_bruss_shooting: the MF monodromy through "
+                             f"dia_spmv: {out}")
+    if not out["mf_floquet_gap"] <= 1e-4:
+        raise AssertionError(f"po_bruss_shooting: FloquetQaDMF against "
+                             f"FloquetColl: {out}")
+    if per_application <= 0:
+        raise AssertionError("po_bruss_shooting: the MF monodromy never "
+                             "launched dia_spmv")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2077,14 +2613,17 @@ def main():
                              f"{unchecked}, which no compare case checks")
     dia_launches, bruss_seconds, bprob, bbr = walled(
         "brusselator_path", brusselator_path, card)
+    nf_launches, bruss_hp = walled("bruss_hopf_nf", bruss_hopf_nf, card,
+                                   bprob, bbr)
     dia_phases = {
-        "brusselator_path": dia_launches,
-        "bruss_hopf_nf": walled("bruss_hopf_nf", bruss_hopf_nf, card, bprob,
-                                bbr),
+        "brusselator_path": dia_launches, "bruss_hopf_nf": nf_launches,
         "bruss_hopf_curve": walled("bruss_hopf_curve", bruss_hopf_curve,
                                    card, bprob, bbr)}
-    dia_launches = sum(dia_phases.values())
     po_launches = walled("po_cgl", po_cgl, card)
+    pob_launches = walled("po_bruss", po_bruss, card, bruss_hp)
+    posh_launches = walled("po_bruss_shooting", po_bruss_shooting, card)
+    dia_phases["po_bruss_shooting"] = posh_launches["dia_spmv"]
+    dia_launches = sum(dia_phases.values())
     walled("check_small_nf", lambda: check_small_nf(
         check_outputs(prob, state)))
     walled("check_bruss_small", check_bruss_small)
@@ -2116,8 +2655,10 @@ def main():
         "device_ms": head["device_ms"],
         "device_floor_ms": floor["device_floor_ms"],
         "launches_by_batch": by_batch,
-        # the periodic-orbit path launches neither kernel (checked)
-        "launches_by_phase": {**sh_phases, "po_cgl": po_launches["sh_jv"]},
+        # the periodic-orbit paths launch no sh_jv (checked)
+        "launches_by_phase": {**sh_phases, "po_cgl": po_launches["sh_jv"],
+                              "po_bruss": pob_launches["sh_jv"],
+                              "po_bruss_shooting": posh_launches["sh_jv"]},
         "cases": cases,
     }, {
         "name": "dia_spmv", "route": "cuda",
@@ -2131,8 +2672,11 @@ def main():
         "device_floor_ms": floor["device_floor_ms"],
         "library_host_ms": dhead["library_host_ms"],
         "library_device_ms": dhead["library_device_ms"],
+        # po_cgl and po_bruss launch none (checked); po_bruss_shooting's
+        # matrix-free monodromy does (checked)
         "launches_by_phase": {**dia_phases,
-                              "po_cgl": po_launches["dia_spmv"]},
+                              "po_cgl": po_launches["dia_spmv"],
+                              "po_bruss": pob_launches["dia_spmv"]},
         "cases": dia_cases,
     }]
     DETAILS["kernels"] = kernels
