@@ -44,8 +44,8 @@ def resolve_device(device=None) -> _torch.device:
 check_tf32_off()
 
 from .core import (BifurcationProblem, BorderedState, ContinuationPar,  # noqa: E402
-                   DotTheta, Lens, NewtonPar, as_lens, lens_get, lens_set,
-                   setfield)
+                   DotTheta, Lens, NewtonPar, ODEBifProblem, PDEBifProblem,
+                   as_lens, lens_get, lens_set, setfield)
 from .linalg import (ArnoldiEig, BiCGStab, BlockJacobiPrecond,  # noqa: E402
                      DenseEig, DenseGEig, DenseLS, EigenMassMatrix,
                      FlatOperator, GMRES, IterativeGEig,
@@ -62,15 +62,25 @@ from .continuation import (AutoSwitch, Bordered, Branch,  # noqa: E402
                            deflated_continuation, merge_branches)
 from .deflation import (DeflationOperator, deflated_newton,  # noqa: E402
                         deflated_problem)
-from .detection import SpecialPoint  # noqa: E402
+from .detection import (ContinuousEvent, DiscreteEvent,  # noqa: E402
+                        PairOfEvents, SetOfEvents, SpecialPoint,
+                        bif_detect_event, fold_detect_event, save_at_event)
 from .ops import BSRMatrix, DIAMatrix, ELLMatrix, dia_spmv  # noqa: E402
-from .normal_forms import (BifDiagNode, bifurcationdiagram,  # noqa: E402
-                           continuation_from_bp, get_normal_form,
-                           hopf_normal_form, multicontinuation, predictor)
-from .codim2 import (continuation_fold, continuation_fold_mf,  # noqa: E402
-                     continuation_hopf, continuation_hopf_mf,
-                     fold_ma_problem, fold_ma_problem_mf, hopf_ma_problem,
-                     hopf_ma_problem_mf, newton_fold, newton_hopf, refine_gh)
+from .normal_forms import (BifDiagNode, bautin_normal_form,  # noqa: E402
+                           bifurcationdiagram, continuation_from_bp,
+                           get_normal_form, hopf_normal_form,
+                           multicontinuation, predictor)
+from .codim2 import (bautin_unfolding, bt_normal_form,  # noqa: E402
+                     bt_predictors, bt_unfolding, continuation_fold,
+                     continuation_fold_mf, continuation_hopf,
+                     continuation_hopf_mf, cusp_normal_form,
+                     fold_ma_problem, fold_ma_problem_mf,
+                     get_normal_form_codim2, hh_normal_form, hh_unfolding,
+                     hopf_ma_problem, hopf_ma_problem_mf, newton_bt,
+                     newton_fold, newton_hopf, predictor_fold_po,
+                     predictor_homoclinic_bt, predictor_ns_hh,
+                     predictor_ns_zh, refine_gh, switch_codim2,
+                     switch_codim2_mf, zh_normal_form, zh_unfolding)
 from .periodic import (COPBLS, COPLS, Collocation,  # noqa: E402
                        FloquetColl, FloquetEig, FloquetGEV, FloquetQaDMF,
                        Flow, PoincareShooting, Shooting, Trapeze,

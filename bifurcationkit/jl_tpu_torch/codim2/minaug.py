@@ -659,3 +659,190 @@ def refine_gh(br_hopf, ind_sp: int, tol_l1: float = 1e-8,
         else:
             pa, la = pm, lm
     return X, 0.5 * (pa + pb)
+
+
+# ---------------------------------------------------------------------------
+# codim-2 -> codim-2 switching (ref the `continuation(br_codim2, ind, opts)`
+# dispatch, src/codim2/codim2.jl:400-560)
+# ---------------------------------------------------------------------------
+
+
+def _switch_target(sp, kind, to):
+    if to is None:
+        to = {"zh": "hopf" if kind == "fold" else "fold",
+              "hh": "hopf",
+              "bt": "fold" if kind == "hopf" else "hopf"}.get(sp.type)
+    if to is None:
+        raise ValueError(f"no switch target for a {sp.type!r} point on a "
+                         f"{kind} curve")
+    return to
+
+
+def _point_shim(prob, kind, param, x, **eig):
+    """A one-point branch (`prob`, `specialpoint`) that the codim-2
+    starters take: the point of type `kind` at `param`, with its eigen
+    data where given."""
+    from types import SimpleNamespace
+
+    from ..detection.points import SpecialPoint
+
+    return SimpleNamespace(prob=prob, specialpoint=[
+        SpecialPoint(type=kind, param=param, x=x, **eig)])
+
+
+def _collapsed(out):
+    """A Hopf curve that fell onto the omega = 0 family (the fold curve the
+    switch came from)."""
+    om = np.asarray(out.gamma._table()["omega"], dtype=float)
+    return float(np.max(np.abs(om))) < 1e-6
+
+
+def switch_codim2(br_c2, ind: int, contparams: ContinuationPar,
+                  to: Optional[str] = None, **kwargs) -> Branch:
+    """Start the OTHER codim-2 curve from a codim-2 point detected along a
+    minimally augmented curve (ref the `continuation(br_codim2, ind,
+    opts)` dispatch, src/codim2/codim2.jl:400-560; the lorenz84 flows
+    `hp_from_zh` / `hp_from_hh`, test/hopf_codim_2/lorenz84.jl:350-371):
+
+      zh on a fold curve  -> the Hopf curve through the same point
+      zh/bt on a Hopf curve -> the fold curve through the point
+      hh on a Hopf curve  -> the OTHER Hopf curve (second frequency)
+      bt on a fold curve  -> the Hopf curve, by a two-sided probe
+
+    Both curves pass through the point, so the new MA problem starts
+    there with the eigen data of the target pair.  A matrix-free curve
+    hands over to `minaug_mf.switch_codim2_mf`."""
+    gamma = br_c2.gamma if isinstance(br_c2, Branch) else br_c2
+    sp = gamma.specialpoint[ind]
+    maprob = gamma.prob
+    if getattr(maprob, "ma_mf", False):
+        from .minaug_mf import switch_codim2_mf
+
+        return switch_codim2_mf(br_c2, ind, contparams, to=to, **kwargs)
+    inner = maprob.inner_prob
+    n = maprob.n_inner
+    X = torch.as_tensor(sp.x)
+    p1, p2 = float(X[n]), float(sp.param)
+    omega_cur = float(X[n + 1]) if maprob.ma_kind == "hopf" else None
+    to = _switch_target(sp, maprob.ma_kind, to)
+
+    # the inner problem anchored at the point (p2 frozen into params)
+    par_full = maprob.lens.set(dict(maprob.params), p2)
+    par_inner = maprob.inner_lens.set(par_full["_inner"], p1)
+    x_in = maprob.unravel_inner(X[:n])
+    prob2 = inner.re_make(u0=x_in, params=par_inner)
+    lens2 = maprob.outer_lens
+
+    if to == "fold":
+        return continuation_fold(_point_shim(prob2, "fold", p1, x_in), 0,
+                                 lens2, contparams, **kwargs)
+    if sp.type == "bt":
+        return _bt_to_hopf_probe(maprob, x_in, p1, p2, contparams, lens2,
+                                 **kwargs)
+
+    # Hopf target: at an HH the pair FARTHEST in frequency from the
+    # current curve's omega, else the complex pair nearest the axis
+    J = prob2.jacobian(x_in, par_inner)
+    vals, vecs = dense_eig(J)
+    vals_np = _host(vals)
+    cand = np.where(vals_np.imag > 1e-10)[0]
+    if len(cand) == 0:
+        raise RuntimeError("no complex pair at the switch point")
+    if sp.type == "hh" and omega_cur is not None:
+        i0 = cand[np.argmax(np.abs(vals_np[cand].imag - abs(omega_cur)))]
+    else:
+        i0 = cand[np.argmin(np.abs(vals_np.real[cand]))]
+    lam = vals_np[i0]
+    zeta = vecs[:, int(i0)].to(COMPLEX_DTYPE)
+    zeta = zeta / torch.linalg.vector_norm(zeta)
+    valsT, vecsT = dense_eig(J.T)
+    zeta_ad = vecsT[:, int(np.argmin(np.abs(_host(valsT) - np.conj(lam))))]
+    zeta_ad = (zeta_ad / torch.linalg.vector_norm(zeta_ad)).to(COMPLEX_DTYPE)
+    # the chosen pair is passed to the MA problem directly: at an HH the
+    # starter's own eigen pick would be ambiguous
+    x_flat = ravel(x_in)[0]
+    maprob2 = _start_problem(
+        hopf_ma_problem(prob2, prob2.lens, lens2, zeta_ad, zeta),
+        torch.cat([x_flat, _scalar(p1, x_flat),
+                   _scalar(float(lam.imag), x_flat)]), zeta_ad, zeta)
+    dc2 = kwargs.pop("detect_codim2_bifurcation", 2)
+    event = _hopf_codim2_event(maprob2, with_gh=True) if dc2 > 0 else None
+    cp = contparams
+    if event is not None and cp.detect_event == 0:
+        cp = cp.replace(detect_event=1,
+                        detect_bifurcation=min(cp.detect_bifurcation, 1))
+    alg = kwargs.pop("alg", None) or PALC()
+    gamma2 = continuation(maprob2, alg, cp, kind="HopfCont", event=event,
+                          **kwargs)
+    _relabel_codim2(gamma2, maprob2)
+    return Branch(gamma=gamma2, bp=sp)
+
+
+_BT_PROBE_FRACS = (1e-2, 5e-2, 2e-1)
+_BT_PROBE_DIRS = ((1, 0), (-1, 0), (0, 1), (0, -1),
+                  (1, 1), (-1, -1), (1, -1), (-1, 1))
+
+
+def _bt_probes(maprob, p1, p2):
+    """The probe points around a BT: (p1, p2, inner params) at growing
+    distance, in the eight directions of the (p1, p2) plane."""
+    scale = max(abs(p2), abs(p1), 1e-2)
+    for frac in _BT_PROBE_FRACS:
+        for d1, d2 in _BT_PROBE_DIRS:
+            p1_t, p2_t = p1 + d1 * frac * scale, p2 + d2 * frac * scale
+            par = maprob.lens.set(dict(maprob.params), p2_t)
+            yield p1_t, p2_t, maprob.inner_lens.set(par["_inner"], p1_t)
+
+
+def _probe_newton(inner, x_in, par, contparams):
+    """The equilibrium at a probe's parameters from the BT state, or None
+    where Newton does not converge (a probe may start on a singular
+    jacobian: the BT state is a double-zero point for a whole line of
+    parameters)."""
+    try:
+        sol = newton(inner.re_make(u0=x_in, params=par),
+                     contparams.newton_options)
+    except RuntimeError as err:
+        # a singular dense factorisation only (torch raises it as a plain
+        # RuntimeError from lu_factor); anything else propagates
+        if not (isinstance(err, torch.linalg.LinAlgError)
+                or "lu_factor" in str(err)):
+            raise
+        return None
+    return sol if bool(sol.converged) else None
+
+
+def _bt_to_hopf_probe(maprob, x_in, p1, p2, contparams, lens2, **kwargs):
+    """bt -> hopf on a dense fold curve: the Hopf curve leaves the BT
+    tangentially to the fold curve and the eigenvalue pair complexifies
+    on ONE side only, so probe (p1, p2) around the point, reconverge the
+    equilibrium and hand a complexified pair near the axis to the Hopf
+    MA (its own Newton refines (x, p1, omega))."""
+    inner = maprob.inner_prob
+    last_err = None
+    for p1_t, _, par_t in _bt_probes(maprob, p1, p2):
+        sol = _probe_newton(inner, x_in, par_t, contparams)
+        if sol is None:
+            continue
+        vp = _host(dense_eig(inner.jacobian(sol.u, par_t),
+                             with_vectors=False)[0])
+        pair = vp[np.abs(vp.imag) > 1e-8]
+        if len(pair) == 0:
+            continue
+        lam = pair[np.argmin(np.abs(pair.real))]
+        if abs(lam.real) > 0.5 * abs(lam.imag):
+            continue                 # not near a Hopf yet
+        shim = _point_shim(inner.re_make(u0=sol.u, params=par_t), "hopf",
+                           p1_t, sol.u)
+        try:
+            out = continuation_hopf(shim, 0, lens2, contparams, **kwargs)
+        except RuntimeError as err:
+            last_err = err
+            continue
+        if _collapsed(out):
+            last_err = RuntimeError("collapsed onto omega = 0")
+            continue
+        return out
+    raise RuntimeError(f"bt -> hopf probing failed around (p1, p2) = "
+                       f"({p1}, {p2})"
+                       + (f" (last: {last_err})" if last_err else ""))

@@ -1004,3 +1004,166 @@ def continuation_hopf_mf(br, ind_bif: int, lens2,
                          event, detect_codim2_bifurcation, "HopfCont",
                          kwargs)
     return Branch(gamma=gamma, bp=sp)
+
+
+# ---------------------------------------------------------------------------
+# codim-2 -> codim-2 switching from matrix-free curves
+# ---------------------------------------------------------------------------
+
+
+def _bt_to_hopf_probe_mf(maprob, sp, contparams, lens2, nev: int = 10,
+                         **kwargs):
+    """bt -> hopf from a matrix-free fold curve: probe (p1, p2) around the
+    BT as the dense route does, reconverge the equilibrium with the
+    (iterative) inner Newton, and read the split of the double zero
+    eigenvalue through the BT Jordan subspace.  Against a stiff PDE
+    spectrum plain Krylov cannot see the near-zero pair, but it lives in
+    span(q0, q1) of the Jordan chain that the matrix-free BT normal form
+    delivers: the 2x2 oblique projection <p_i, J q_j> (eigensolved on the
+    host) tracks how the pair splits at each probe, to O(eps^2).  Where
+    that basis cannot be had, the probe falls back to Arnoldi on the
+    inner operator."""
+    from .minaug import _bt_probes, _collapsed, _point_shim, _probe_newton
+    from .normal_forms import bt_normal_form
+
+    inner = maprob.inner_prob
+    n = maprob.n_inner
+    X = torch.as_tensor(sp.x)
+    x_in = maprob.unravel_inner(X[:n])
+    p1, p2 = float(X[n]), float(sp.param)
+    try:
+        par_bt = maprob.lens.set(dict(maprob.params), p2)
+        pt_bt = bt_normal_form(
+            inner, x_in, maprob.inner_lens.set(par_bt["_inner"], p1),
+            matrix_free=True, precond=getattr(inner, "spectral_precond",
+                                              None))
+        basis = pt_bt.zeta + pt_bt.zeta_star          # q0, q1, p0, p1
+    except RuntimeError:
+        basis = None
+    last_err = None
+    for p1_t, p2_t, par_in in _bt_probes(maprob, p1, p2):
+        sol = _probe_newton(inner, x_in, par_in, contparams)
+        if sol is None:
+            continue
+        x_flat = ravel(sol.u)[0]
+        if basis is not None:
+            q0b, q1b, p0b, p1b = basis
+            Jd = _jd(inner, sol.u, par_in)
+            Jq = torch.stack([Jd(q0b), Jd(q1b)])
+            A2 = torch.stack([Jq @ p0b, Jq @ p1b]).cpu().numpy()
+            w2, v2 = np.linalg.eig(A2)
+            icx = np.where(w2.imag > 1e-10)[0]
+            if len(icx) == 0:
+                continue
+            lam = w2[icx[0]]
+            if abs(lam.real) > 0.5 * abs(lam.imag):
+                continue
+            c = v2[:, icx[0]]
+            zeta = (complex(c[0]) * q0b + complex(c[1]) * q1b).cpu().numpy()
+            zeta = zeta / np.linalg.norm(zeta)
+            vals = np.array([lam, np.conj(lam)])
+            vecs = np.stack([zeta, np.conj(zeta)], axis=1)
+            i0 = 0
+        else:
+            X_try = torch.cat([x_flat, _p_tensor(p1_t, x_flat).reshape(1)])
+            par_try = maprob.lens.set(dict(maprob.params), p2_t)
+            vals, vecs, _ = _iter_spectrum_at(maprob, X_try, par_try,
+                                              nev=nev)
+            cand = np.where(vals.imag > 1e-8)[0]
+            if len(cand) == 0:
+                continue
+            i0 = int(cand[np.argmin(np.abs(vals.real[cand]))])
+            lam = vals[i0]
+            if abs(lam.real) > 0.5 * abs(lam.imag):
+                continue             # complexified but not near a Hopf yet
+        shim = _point_shim(inner.re_make(u0=sol.u, params=par_in), "hopf",
+                           p1_t, sol.u, eigenvals=vals, eigenvecs=vecs,
+                           ind_ev=i0 + 1)
+        try:
+            out = continuation_hopf_mf(shim, 0, lens2, contparams, **kwargs)
+        except RuntimeError as err:
+            last_err = err
+            continue
+        if _collapsed(out):
+            last_err = RuntimeError("collapsed onto omega = 0")
+            continue
+        return out
+    raise RuntimeError(f"bt -> hopf probing failed around (p1, p2) = "
+                       f"({p1}, {p2})"
+                       + (f" (last: {last_err})" if last_err else ""))
+
+
+def switch_codim2_mf(br_c2, ind: int, contparams: ContinuationPar,
+                     to: Optional[str] = None, nev: int = 10,
+                     **kwargs) -> Branch:
+    """Start the OTHER matrix-free codim-2 curve from a codim-2 point of a
+    matrix-free MA curve (ref the jacobian_ma-generic dispatch,
+    src/codim2/codim2.jl:400-560):
+
+      zh on a fold curve    -> the Hopf curve through the same point
+      zh/bt on a Hopf curve -> the fold curve through the point
+      hh on a Hopf curve    -> the OTHER Hopf curve (second frequency)
+      bt on a fold curve    -> the Hopf curve, by the two-sided probe
+
+    The target eigenpair comes from the point's saved iterative spectrum
+    when it has one, else from Arnoldi on the inner operator; nothing
+    materialises a matrix."""
+    import warnings
+
+    from .minaug import _point_shim, _switch_target
+
+    gamma = br_c2.gamma if isinstance(br_c2, Branch) else br_c2
+    sp = gamma.specialpoint[ind]
+    maprob = gamma.prob
+    if not getattr(maprob, "ma_mf", False):
+        raise ValueError("switch_codim2_mf needs a matrix-free MA curve")
+    n = maprob.n_inner
+    X = torch.as_tensor(sp.x)
+    p1, p2 = float(X[n]), float(sp.param)
+    omega_cur = float(X[n + 1]) if maprob.ma_kind == "hopf" else None
+    to = _switch_target(sp, maprob.ma_kind, to)
+    lens2 = maprob.outer_lens
+    if to == "hopf" and sp.type == "bt":
+        return _bt_to_hopf_probe_mf(maprob, sp, contparams, lens2, nev=nev,
+                                    **kwargs)
+
+    # the inner problem anchored at the point (p2 frozen into params); the
+    # state shape is the same, so re_make keeps `spectral_precond`
+    par_full = maprob.lens.set(dict(maprob.params), p2)
+    x_in = maprob.unravel_inner(X[:n])
+    prob2 = maprob.inner_prob.re_make(
+        u0=x_in, params=maprob.inner_lens.set(par_full["_inner"], p1))
+
+    vals = None if sp.eigenvals is None else np.asarray(sp.eigenvals)
+    vecs = sp.eigenvecs
+    if vals is None or (to == "hopf" and vecs is None):
+        vals, vecs, cv = _iter_spectrum_at(maprob, X, par_full, nev=nev)
+        if not cv:
+            warnings.warn("iterative spectrum at the switch point did not "
+                          "fully converge; the anchors' bootstrap inverse "
+                          "iteration refines them", RuntimeWarning)
+    if to == "fold":
+        # the fold eigenvalue: smallest |lambda| among the near-real ones
+        realish = np.where(np.abs(vals.imag) < 1e-6)[0]
+        eig = {}
+        if len(realish):
+            i0 = int(realish[np.argmin(np.abs(vals[realish]))])
+            eig = dict(eigenvals=vals, ind_ev=i0 + 1)
+            if vecs is not None:
+                eig["eigenvecs"] = vecs
+        return continuation_fold_mf(_point_shim(prob2, "fold", p1, x_in,
+                                                **eig),
+                                    0, lens2, contparams, **kwargs)
+    cand = np.where(vals.imag > 1e-10)[0]
+    if len(cand) == 0:
+        raise RuntimeError("no complex pair in the iterative spectrum at "
+                           "the switch point (raise nev)")
+    if sp.type == "hh" and omega_cur is not None:
+        # at an HH both pairs sit on the axis: the target is the pair
+        # FARTHEST in frequency from the current curve's omega
+        i0 = cand[np.argmax(np.abs(vals[cand].imag - abs(omega_cur)))]
+    else:
+        i0 = cand[np.argmin(np.abs(vals.real[cand]))]
+    return continuation_hopf_mf(
+        _point_shim(prob2, "hopf", p1, x_in, eigenvals=vals, eigenvecs=vecs,
+                    ind_ev=int(i0) + 1), 0, lens2, contparams, **kwargs)

@@ -9,6 +9,9 @@ plus optional user derivatives; what is missing is synthesised with
 * dense jacobian            -> `torch.func.jacfwd` over the raveled state
 * dF/dp                     -> `torch.func.jvp` through the lens (exact)
 * d2F, d3F                  -> nested `torch.func.jvp` (or the user's forms)
+* d4F, d5F                  -> nested `torch.func.jvp` of F; their complex
+                               extensions batch the 2^k re/im combinations
+                               in one `torch.func.vmap`
 
 The problem object is static configuration; the dynamic data (u, params)
 is always passed explicitly.
@@ -16,10 +19,11 @@ is always passed explicitly.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 from typing import Any, Callable, Optional
 
 import torch
-from torch.func import jacfwd, jvp, vjp
+from torch.func import jacfwd, jvp, vjp, vmap
 
 from .lens import LensLike, lens_get, lens_set
 from .state import ravel
@@ -36,6 +40,26 @@ def _as_param_tensor(p0, like: torch.Tensor) -> torch.Tensor:
     if isinstance(p0, torch.Tensor):
         return p0.to(device=like.device)
     return torch.as_tensor(p0, dtype=like.dtype, device=like.device)
+
+
+def re_im_rows(dxs):
+    """The real evaluations that extend a real multilinear form to the
+    directions `dxs`, complex ones split into real and imaginary parts:
+    (rows, weights), one tuple of real directions per row and its weight
+    i^(number of imaginary parts); a real direction enters once."""
+    parts = [(d.real, d.imag) if d.is_complex() else (d, None) for d in dxs]
+    rows, weights = [], []
+    for c in itertools.product((0, 1), repeat=len(dxs)):
+        if all(parts[i][k] is not None for i, k in enumerate(c)):
+            rows.append(tuple(parts[i][k] for i, k in enumerate(c)))
+            weights.append(1j ** sum(c))
+    return rows, weights
+
+
+def weighted_sum(terms, weights):
+    """sum_r weights[r] terms[r] in complex128, `terms` stacked on dim 0."""
+    w = torch.tensor(weights, dtype=torch.complex128, device=terms.device)
+    return torch.tensordot(w, terms.to(torch.complex128), dims=1)
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -152,6 +176,40 @@ class BifurcationProblem:
 
         return jvp(j2, (u,), (dx3,))[1]
 
+    def d4F(self, u, params, dx1, dx2, dx3, dx4):
+        """Quadrilinear form d^4F(u)[dx1..dx4]: four nested jvps of F (the
+        user's d2F/d3F are not consulted, as in the JAX package)."""
+        def j3(x):
+            def j2(y):
+                def jv(z):
+                    return jvp(lambda w: self.F(w, params), (z,), (dx1,))[1]
+
+                return jvp(jv, (y,), (dx2,))[1]
+
+            return jvp(j2, (x,), (dx3,))[1]
+
+        return jvp(j3, (u,), (dx4,))[1]
+
+    def d5F(self, u, params, dx1, dx2, dx3, dx4, dx5):
+        """Quintilinear form d^5F(u)[dx1..dx5]: a jvp of `d4F`."""
+        return jvp(lambda x: self.d4F(x, params, dx1, dx2, dx3, dx4),
+                   (u,), (dx5,))[1]
+
+    def _multilinear_complex(self, form, u, params, *dxs):
+        """A real multilinear form extended to complex directions by
+        multilinearity: the real evaluations on the re/im parts
+        (`re_im_rows`) run as one `vmap`; the result is complex."""
+        rows, weights = re_im_rows(dxs)
+        cols = [torch.stack(c) for c in zip(*rows)]
+        terms = vmap(lambda *ds: form(u, params, *ds))(*cols)
+        return weighted_sum(terms, weights)
+
+    def d4F_complex(self, u, params, *dxs):
+        return self._multilinear_complex(self.d4F, u, params, *dxs)
+
+    def d5F_complex(self, u, params, *dxs):
+        return self._multilinear_complex(self.d5F, u, params, *dxs)
+
     # hooks that close over the functional and the state shape; carrying
     # them onto a problem with a different F or state shape would apply a
     # stale operator, so `re_make` drops them then
@@ -182,3 +240,9 @@ class BifurcationProblem:
 
     def __eq__(self, other):
         return self is other
+
+
+# Aliases matching the reference's ODE/PDE constructors
+# (src/Problems.jl:514-530)
+ODEBifProblem = BifurcationProblem
+PDEBifProblem = BifurcationProblem

@@ -130,3 +130,39 @@ def po_branch_to_numpy(br) -> Dict[str, Any]:
         "sp_param": np.asarray([float(sp.param)
                                 for sp in gamma.specialpoint], dtype=float),
     }
+
+
+def _scalar_or_array(v):
+    if isinstance(v, dict):
+        return {k: _scalar_or_array(x) for k, x in v.items()}
+    if callable(v) or isinstance(v, (bool, str)) or v is None:
+        return v
+    arr = _to_numpy(v) if isinstance(v, torch.Tensor) else np.asarray(v)
+    return arr.item() if arr.ndim == 0 else arr
+
+
+def codim2_point_to_numpy(pt) -> Dict[str, Any]:
+    """A codim-2 normal-form point of either package (`BogdanovTakens`,
+    `Cusp`, `Bautin`, `ZeroHopf`, `HopfHopf`) as numpy: its type name
+    `kind`, the `nf` dict (Python numbers, complex where complex; K10,
+    K11, K2 and other vectors as arrays), `zeta` and `zeta_star` (pairs
+    stacked as columns), `p`, and `omega` or `omega1`/`omega2` where the
+    point has them."""
+    out = {"kind": type(pt).__name__,
+           "nf": {k: _scalar_or_array(v) for k, v in pt.nf.items()},
+           "zeta": None if pt.zeta is None else _to_numpy(pt.zeta),
+           "zeta_star": (None if pt.zeta_star is None
+                         else _to_numpy(pt.zeta_star)),
+           "p": None if pt.p is None else np.asarray(pt.p, dtype=float)}
+    for k in ("omega", "omega1", "omega2"):
+        if hasattr(pt, k):
+            out[k] = float(getattr(pt, k))
+    return out
+
+
+def unfolding_to_numpy(nf: Dict[str, Any]) -> Dict[str, Any]:
+    """An unfolding dict of either package (`bt_unfolding`,
+    `bautin_unfolding`, `zh_unfolding`, `hh_unfolding`) as numpy: tensors
+    and arrays as numpy arrays, 0-d ones as Python numbers, the nested
+    `ns1`/`ns2` dicts likewise."""
+    return {k: _scalar_or_array(v) for k, v in nf.items()}

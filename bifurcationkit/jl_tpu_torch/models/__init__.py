@@ -1,4 +1,6 @@
-from .equilibria import (brusselator_1d, carrier, cgl2d, chan,
-                         chan_spectral, hopf_normal_2d, lorenz84,
-                         pitchfork_1d, stuart_landau, transcritical_1d)
+from .equilibria import (bogdanov_takens_2d, brusselator_1d, carrier,
+                         cgl2d, chan, chan_spectral, co_oxidation,
+                         fold_hopf_interaction_2d, hopf_normal_2d, lorenz84,
+                         neumann_laplacian_dia, pitchfork_1d, stuart_landau,
+                         transcritical_1d, tsodyks_markram)
 from .sh import mittelmann, swift_hohenberg_2d

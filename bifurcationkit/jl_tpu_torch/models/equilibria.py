@@ -3,8 +3,11 @@
 fixtures): the Chan BVP (finite differences and Chebyshev collocation) and the
 Carrier BVP, the scalar transcritical and pitchfork normal forms, the
 planar Hopf normal form, the Stuart-Landau oscillator, the 1D
-Brusselator, the Lorenz-84 model and the 2D complex Ginzburg-Landau
-equation.
+Brusselator, the Lorenz-84 model, the 2D complex Ginzburg-Landau
+equation, the CO-oxidation and Tsodyks-Markram models, and the two PDE
+models with exact codim-2 geometry (`fold_hopf_interaction_2d`,
+`bogdanov_takens_2d`), whose J.v applies their Neumann Laplacian through
+the DIA kernel.
 
 The Stuart-Landau and cGL2d residuals and their closed-form J.v take a
 leading batch of states natively (`batched_F`), so a periodic orbit's M
@@ -23,6 +26,7 @@ import torch
 
 from .. import DEFAULT_DTYPE, resolve_device
 from ..core.problem import BifurcationProblem
+from ..ops.dia_spmv import dia_spmv
 
 
 def _params(values: dict, dtype, dev) -> dict:
@@ -462,4 +466,308 @@ def cgl2d(Nx: int = 41, Ny: int = 21, lx: float = np.pi,
         return blocks, to_modes, from_modes
 
     object.__setattr__(prob, "po_spectral_data", po_spectral_data)
+    return prob
+
+
+def co_oxidation(params=None, device=None,
+                 dtype: torch.dtype = DEFAULT_DTYPE):
+    """CO-oxidation model (ref test/hopf_codim_2/COModel.jl): fold and Hopf
+    curves with BT, cusp and GH points.  Continued in `q2`."""
+    dev = resolve_device(device)
+    if params is None:
+        params = {"q1": 2.5, "q2": 1.0, "q3": 10.0, "q4": 0.0675,
+                  "q5": 1.0, "q6": 0.1, "k": 0.4}
+
+    def F(u, par):
+        x, y, s = u[0], u[1], u[2]
+        q1, q2, q3, q4 = par["q1"], par["q2"], par["q3"], par["q4"]
+        q5, q6, k = par["q5"], par["q6"], par["k"]
+        z = 1 - x - y - s
+        return torch.stack([
+            2 * q1 * z ** 2 - 2 * q5 * x ** 2 - q3 * x * y,
+            q2 * z - q6 * y - q3 * x * y,
+            q4 * z - k * q4 * s,
+        ])
+
+    # ref test/hopf_codim_2/COModel.jl:21
+    u0 = torch.tensor([0.001137, 0.891483, 0.062345], dtype=dtype,
+                      device=dev)
+    return BifurcationProblem(F, u0=u0, params=_params(params, dtype, dev),
+                              lens="q2")
+
+
+def tsodyks_markram(params=None, device=None,
+                    dtype: torch.dtype = DEFAULT_DTYPE):
+    """Tsodyks-Markram neural-mass model (ref examples/TMModel.jl:8-20):
+    E-x-u synaptic dynamics with a softplus firing rate.  The equilibrium
+    branch in E0 carries two folds and a Hopf; continued in `E0`."""
+    dev = resolve_device(device)
+    if params is None:
+        params = {"alpha": 1.5, "tau": 0.013, "J": 3.07, "E0": -2.0,
+                  "tauD": 0.2, "U0": 0.3, "tauF": 1.5}
+
+    def F(z, par):
+        E, x, u = z[0], z[1], z[2]
+        SS0 = par["J"] * u * x * E + par["E0"]
+        SS1 = par["alpha"] * torch.logaddexp(torch.zeros_like(SS0),
+                                             SS0 / par["alpha"])
+        return torch.stack([
+            (-E + SS1) / par["tau"],
+            (1 - x) / par["tauD"] - u * x * E,
+            (par["U0"] - u) / par["tauF"] + par["U0"] * (1 - u) * E,
+        ])
+
+    # ref examples/TMModel.jl:20
+    u0 = torch.tensor([0.238616, 0.982747, 0.367876], dtype=dtype,
+                      device=dev)
+    return BifurcationProblem(F, u0=u0, params=_params(params, dtype, dev),
+                              lens="E0")
+
+
+def neumann_laplacian_dia(Nx: int, Ny: int, hx2: float, hy2: float,
+                          device=None, dtype: torch.dtype = DEFAULT_DTYPE):
+    """The 2D modified-corner Neumann Laplacian of `ops.sh_jv.lap_neumann`
+    (edge replication; ref examples/SH2d-fronts.jl:20-24) as one
+    `DIAMatrix` on the row-major flattened Nx*Ny grid: offsets 0, +-1
+    (along y) and +-Ny (along x), data zero across row ends, and the
+    replicated edge folded into the diagonal (-1/h^2 in place of -2/h^2
+    at each border).  The matrix is symmetric."""
+    from ..ops import DIAMatrix
+
+    ix = np.arange(Nx)[:, None] * np.ones((1, Ny))
+    iy = np.ones((Nx, 1)) * np.arange(Ny)[None, :]
+    diag = -(2.0 - (ix == 0) - (ix == Nx - 1)) / hx2 \
+        - (2.0 - (iy == 0) - (iy == Ny - 1)) / hy2
+    data = np.stack([diag,
+                     (iy < Ny - 1) / hy2, (iy > 0) / hy2,
+                     (ix < Nx - 1) / hx2, (ix > 0) / hx2]).reshape(5, -1)
+    return DIAMatrix(torch.as_tensor(data, dtype=dtype,
+                                     device=resolve_device(device)),
+                     (0, 1, -1, Ny, -Ny))
+
+
+def _dia_laplacian_2d(Nx, Ny, hx2, hy2, dev, spmv):
+    """v -> Delta v through `spmv(A, v)` (`dia_spmv`: the kernel on the
+    card), for states (..., k, Nx, Ny): every field of every state goes in
+    one batched product.  One `DIAMatrix` per dtype, made at first use (a
+    low-precision twin reuses it)."""
+    mats = {}
+    n = Nx * Ny
+
+    def lap(v):
+        A = mats.get(v.dtype)
+        if A is None:
+            A = mats[v.dtype] = neumann_laplacian_dia(Nx, Ny, hx2, hy2, dev,
+                                                      v.dtype)
+        return spmv(A, v.reshape(-1, n).contiguous()).reshape(v.shape)
+
+    return lap
+
+
+def _dct_precond(Nx, Ny, hx2, hy2, dev, dtype):
+    """blockdiag (Delta - shift)^-1 per component in the 2D DCT-II basis
+    (which diagonalises the modified-corner Neumann Laplacian), computed
+    in `dtype` (f32 by default, as in the JAX package); on a state, a flat
+    vector or a block of them."""
+    from .sh import dct2, idct2
+
+    mu_x = 2.0 * (np.cos(np.pi * np.arange(Nx) / Nx) - 1) / hx2
+    mu_y = 2.0 * (np.cos(np.pi * np.arange(Ny) / Ny) - 1) / hy2
+    sym = torch.as_tensor(mu_x[:, None] + mu_y[None, :], dtype=dtype,
+                          device=dev)
+
+    def precond(v, shift=1.0):
+        x = v.reshape(-1, Nx, Ny).to(dtype)
+        return idct2(dct2(x) / (sym - shift)).to(v.dtype).reshape(v.shape)
+
+    return precond
+
+
+def _lap2d(Nx, Ny, lx, ly):
+    from ..ops.sh_jv import lap_neumann
+
+    hx2 = float((2 * lx / Nx) ** 2)
+    hy2 = float((2 * ly / Ny) ** 2)
+
+    def lap(u):
+        return lap_neumann(u, hx2, -2) + lap_neumann(u, hy2, -1)
+
+    return hx2, hy2, lap
+
+
+def fold_hopf_interaction_2d(Nx: int = 32, Ny: int = 32,
+                             lx: float = np.pi, ly: float = np.pi,
+                             p1: float = -0.4, a: float = -0.5,
+                             alpha: float = 1.0, nu: float = 1.0,
+                             device=None,
+                             dtype: torch.dtype = DEFAULT_DTYPE,
+                             spmv=None):
+    """Constructed PDE-scale fold-Hopf (zero-Hopf) interaction with exact
+    codim-2 geometry, the validation model of matrix-free codim-2
+    switching:
+
+        s_t = Lap s + p1 + s^2
+        z_t = Lap z + (a + alpha s) z + i nu z      (z = x + i y)
+
+    with Neumann Laplacians, state (3, Nx, Ny).  Constant states
+    s = +-sqrt(-p1), z = 0; per DCT mode k the jacobian is block diagonal
+    with s-block (lam_k + 2 s) and z-block (lam_k + a + alpha s +- i nu):
+    the fold curve in (p1, a) is exactly p1 = 0, the zero-Hopf on it is at
+    a = 0, and the Hopf curve through it is p1 = -(a/alpha)^2 with
+    omega = nu.
+
+    J.v (`jac_op`) applies the Laplacian as one `DIAMatrix`
+    (`neumann_laplacian_dia`) through `dia_spmv`, the three fields in one
+    batched launch, plus the elementwise local terms; J^T.v
+    (`jac_adjoint`) the same (the Laplacian is symmetric).  d2F and d3F
+    are closed forms (d3F and every higher form vanish).  The spectral
+    preconditioner (`spectral_precond`) computes in f32, as in the JAX
+    package, which bounds what the matrix-free normal forms resolve to
+    about 3e-8 relative.  `spmv(A, v)`
+    is the DIA product (default `ops.dia_spmv`; `ops.dia_spmv_plain`
+    holds the kernel against its plain version on the card)."""
+    dev = resolve_device(device)
+    spmv = spmv or dia_spmv
+    hx2, hy2, lap = _lap2d(Nx, Ny, lx, ly)
+    lap_dia = _dia_laplacian_2d(Nx, Ny, hx2, hy2, dev, spmv)
+
+    def F(u, par):
+        s, x, y = u[0], u[1], u[2]
+        g = par["a"] + par["alpha"] * s
+        return torch.stack([lap(s) + par["p1"] + s * s,
+                            lap(x) + g * x - par["nu"] * y,
+                            lap(y) + par["nu"] * x + g * y])
+
+    def _local(u, par):
+        s, x, y = u[0], u[1], u[2]
+        return s, x, y, par["a"] + par["alpha"] * s, par["alpha"], par["nu"]
+
+    def jac_op(u, par):
+        s, x, y, g, al, nn = _local(u, par)
+
+        def op(v):
+            L = lap_dia(v)
+            vs, vx, vy = v[..., 0, :, :], v[..., 1, :, :], v[..., 2, :, :]
+            return torch.stack([
+                L[..., 0, :, :] + 2 * s * vs,
+                L[..., 1, :, :] + al * x * vs + g * vx - nn * vy,
+                L[..., 2, :, :] + al * y * vs + nn * vx + g * vy], dim=-3)
+
+        return op
+
+    def jac_adjoint(u, par):
+        s, x, y, g, al, nn = _local(u, par)
+
+        def op(w):
+            L = lap_dia(w)
+            ws, wx, wy = w[..., 0, :, :], w[..., 1, :, :], w[..., 2, :, :]
+            return torch.stack([
+                L[..., 0, :, :] + 2 * s * ws + al * (x * wx + y * wy),
+                L[..., 1, :, :] + g * wx + nn * wy,
+                L[..., 2, :, :] - nn * wx + g * wy], dim=-3)
+
+        return op
+
+    def d2F(u, par, d1, d2):
+        s1, x1, y1 = d1[..., 0, :, :], d1[..., 1, :, :], d1[..., 2, :, :]
+        s2, x2, y2 = d2[..., 0, :, :], d2[..., 1, :, :], d2[..., 2, :, :]
+        al = par["alpha"]
+        return torch.stack([2 * s1 * s2, al * (s1 * x2 + x1 * s2),
+                            al * (s1 * y2 + y1 * s2)], dim=-3)
+
+    def d3F(u, par, d1, d2, d3):
+        return torch.zeros_like(d1 * d2 * d3)
+
+    u0 = torch.zeros((3, Nx, Ny), dtype=dtype, device=dev)
+    u0[0] = -np.sqrt(max(-p1, 0.0))
+    prob = BifurcationProblem(
+        F, u0=u0, params=_params({"p1": p1, "a": a, "alpha": alpha,
+                                  "nu": nu}, dtype, dev),
+        lens="p1", jac_op=jac_op, jac_adjoint=jac_adjoint, d2F_user=d2F,
+        d3F_user=d3F, record_from_solution=lambda x, p, **k: {
+            "param": p, "norm": torch.linalg.vector_norm(x.reshape(-1)),
+            "smean": torch.mean(x[0])})
+    object.__setattr__(prob, "spectral_precond",
+                       _dct_precond(Nx, Ny, hx2, hy2, dev,
+                                    torch.float32))
+    return prob
+
+
+def bogdanov_takens_2d(Nx: int = 40, Ny: int = 40,
+                       lx: float = np.pi / 4, ly: float = np.pi / 4,
+                       b1: float = 0.5, b2: float = 2.0, device=None,
+                       dtype: torch.dtype = DEFAULT_DTYPE,
+                       spmv=None):
+    """PDE-promoted Bogdanov-Takens model (the planar bt_model with Neumann
+    diffusion), state (2, Nx, Ny):
+
+        u_t = Lap u + v
+        v_t = Lap v + b1 + b2 u + u^2 - u v
+
+    Constant states have v = 0 and b1 + b2 u + u^2 = 0; per DCT mode k the
+    jacobian block is [[lam_k, 1], [b2 + 2u - v, lam_k - u]], so mode 0 is
+    exactly the ODE bt_model: the fold curve b1 = b2^2/4 with an exact BT
+    at (b1, b2) = (0, 0), u = 0.  The quarter-size domain keeps the mode-k
+    fold curves far from the mode-0 one.
+
+    J.v (`jac_op`) and J^T.v (`jac_adjoint`) apply the Laplacian as one
+    `DIAMatrix` through `dia_spmv`, both fields in one batched launch,
+    plus the elementwise local terms; d2F is a closed form, d3F and every
+    higher form vanish.  The preconditioner and `spmv` as for
+    `fold_hopf_interaction_2d`."""
+    dev = resolve_device(device)
+    spmv = spmv or dia_spmv
+    hx2, hy2, lap = _lap2d(Nx, Ny, lx, ly)
+    lap_dia = _dia_laplacian_2d(Nx, Ny, hx2, hy2, dev, spmv)
+
+    def F(w, par):
+        u, v = w[0], w[1]
+        return torch.stack([lap(u) + v,
+                            lap(v) + par["b1"] + par["b2"] * u + u * u
+                            - u * v])
+
+    def jac_op(w, par):
+        u, v = w[0], w[1]
+        c = par["b2"] + 2 * u - v
+
+        def op(d):
+            L = lap_dia(d)
+            da, db = d[..., 0, :, :], d[..., 1, :, :]
+            return torch.stack([L[..., 0, :, :] + db,
+                                L[..., 1, :, :] + c * da - u * db], dim=-3)
+
+        return op
+
+    def jac_adjoint(w, par):
+        u, v = w[0], w[1]
+        c = par["b2"] + 2 * u - v
+
+        def op(d):
+            L = lap_dia(d)
+            da, db = d[..., 0, :, :], d[..., 1, :, :]
+            return torch.stack([L[..., 0, :, :] + c * db,
+                                L[..., 1, :, :] + da - u * db], dim=-3)
+
+        return op
+
+    def d2F(w, par, d1, d2):
+        a1, b1_ = d1[..., 0, :, :], d1[..., 1, :, :]
+        a2, b2_ = d2[..., 0, :, :], d2[..., 1, :, :]
+        return torch.stack([torch.zeros_like(a1 * a2),
+                            2 * a1 * a2 - (a1 * b2_ + b1_ * a2)], dim=-3)
+
+    def d3F(w, par, d1, d2, d3):
+        return torch.zeros_like(d1 * d2 * d3)
+
+    w0 = torch.zeros((2, Nx, Ny), dtype=dtype, device=dev)
+    w0[0] = (-b2 + np.sqrt(max(b2 * b2 - 4 * b1, 0.0) + 1e-12)) / 2.0
+    prob = BifurcationProblem(
+        F, u0=w0, params=_params({"b1": b1, "b2": b2}, dtype, dev),
+        lens="b1", jac_op=jac_op, jac_adjoint=jac_adjoint, d2F_user=d2F,
+        d3F_user=d3F, record_from_solution=lambda x, p, **k: {
+            "param": p, "norm": torch.linalg.vector_norm(x.reshape(-1)),
+            "umean": torch.mean(x[0])})
+    object.__setattr__(prob, "spectral_precond",
+                       _dct_precond(Nx, Ny, hx2, hy2, dev,
+                                    torch.float32))
     return prob

@@ -117,13 +117,32 @@ Phases, one line each (a failing phase raises and the script exits non-zero):
       FloquetQaDMF(SubspaceEig) on it against FloquetColl's 4 leading
       multipliers to 1e-4, the kernel's launches per application and,
       over one segment, their device time;
+   j. `codim2_bt_pde`: the PDE Bogdanov-Takens model at 40x40 (3,200
+      unknowns, f64), every plain J.v through dia_spmv (its Neumann
+      Laplacian as one DIAMatrix, both fields in one launch): the branch
+      in b1 to its fold, the matrix-free fold curve in b2 with the BT
+      event, `get_normal_form_codim2` (matrix-free), `bt_unfolding` and
+      the homoclinic predictor at the exact BT, `switch_codim2` to the
+      matrix-free Hopf curve (6 steps, the last under torch.profiler);
+      the exact geometry (b1 = b2^2/4, a = 1/40 = -b, K11 = [0, 2], the
+      Hopf curve b1 = 0 with omega^2 = -b2), the forms again through
+      dia_spmv_plain on the card and on the CPU to 1e-8;
+   k. `codim2_zh_pde`: the fold-Hopf PDE at 32x32 (3,072 unknowns) the
+      same way: the branch to its fold, the fold curve in a (p1 = 0) with
+      the ZH event, its matrix-free form (G200 = 2/32, G110 = 1/32,
+      G011 = 0), `switch_codim2` to the Hopf curve p1 = -a^2 at
+      omega = 1, the form through the plain version and on the CPU;
 5. check: the flagship's last point is a finite root of F, a 60x40 SH
    branch and a 32-site Brusselator branch on the card match the same
    branches on the CPU, the matrix-free normal form at the 60x40
    branch's first bp on the card matches the CPU's to 1e-8, and small
    codim-2 curves (the cusp's fold curve dense and matrix-free, the exact
    Hopf curve of z' = (p + q + i) z - z|z|^2 matrix-free) on the card
-   match the CPU's to 1e-9;
+   match the CPU's to 1e-9, as does the dense codim-2 family (Lorenz-84's
+   ZH form and its switched fold curve, the CO model's BT and cusp forms
+   and l2, the BT model's switched Hopf curve, the two-oscillator model's
+   other Hopf curve, the quintic Bautin unfolding), coefficients to 1e-8;
+   the two PDE phases and this one take at most 150 s together;
 6. timing: each kernel, its plain version and its bound at the main
    paths' shapes: the wrapper's time (CUDA events over back-to-back
    calls), its host time per call (the host clock over calls with no
@@ -134,7 +153,7 @@ Phases, one line each (a failing phase raises and the script exits non-zero):
    profiler's time of a one-element `add_`); for SH J.v
    also through the operator the SH model's `jac_op` uses, for DIA SpMV
    also one cuSPARSE CSR matrix-vector product through PyTorch, timed as
-   a yardstick only.  At K = 1 on the flagship grid and at the
+   a yardstick only (SpMM at the codim-2 PDE shapes, K = 2 and 3).  At K = 1 on the flagship grid and at the
    Brusselator path's shape the host time is split into its parts: the
    output's allocation, the ctypes call (with the CUDA launch in it), and
    the stream and device queries around it.
@@ -142,7 +161,8 @@ Phases, one line each (a failing phase raises and the script exits non-zero):
 Then each part's seconds on the host clock (`wall`), the nvidia-smi line,
 one JSON line listing the kernels (po_cgl and po_bruss launch neither:
 their count is 0 in each kernel's `launches_by_phase`; po_bruss_shooting
-launches dia_spmv only), and the final JSON line.  Full details
+and the codim-2 PDE phases launch dia_spmv only), and the final JSON
+line.  Full details
 go to chiprun_out/chip_smoke.json.
 """
 import dataclasses
@@ -164,6 +184,8 @@ import bifurcationkit.jl_tpu_torch as bk  # noqa: E402
 from bifurcationkit.jl_tpu_torch import interop, models  # noqa: E402
 from bifurcationkit.jl_tpu_torch.codim2 import (  # noqa: E402
     minaug, minaug_mf)
+from bifurcationkit.jl_tpu_torch.codim2.unfolding import (  # noqa: E402
+    _codim2_point_context)
 from bifurcationkit.jl_tpu_torch.continuation.engine import (  # noqa: E402
     ContIterable)
 from bifurcationkit.jl_tpu_torch.core.state import BorderedState  # noqa: E402
@@ -310,8 +332,14 @@ def compare_kernel():
 # the most it takes, 32)
 BRUSS_SITES = 128
 PATH_OFFSETS = (-BRUSS_SITES, -1, 0, 1, BRUSS_SITES)
+# the codim-2 PDE paths' shapes: the 40 x 40 BT model's Laplacian on its 2
+# fields (n = 1,600, offsets 0, +-1, +-40) and the 32 x 32 fold-Hopf
+# model's on its 3 (n = 1,024, offsets 0, +-1, +-32), one state or two
+PDE_DIA = [(40 * 40, (0, 1, -1, 40, -40), 2),
+           (32 * 32, (0, 1, -1, 32, -32), 3)]
 DIA_CASES = [(2 * BRUSS_SITES, PATH_OFFSETS, 1),
              (2 * BRUSS_SITES, PATH_OFFSETS, 8),
+             *PDE_DIA, *[(n, off, 2 * K) for n, off, K in PDE_DIA],
              (1000, (-37, -1, 0, 2, 999), 3),
              (20000, (-5000, -1, 0, 1, 5000), 1),
              (1 << 20, (-1024, -1, 0, 1, 1024), 1),
@@ -346,7 +374,8 @@ def compare_dia():
             if not (rel < TOL[dtype]):
                 raise AssertionError(f"dia_spmv disagrees with its plain "
                                      f"version: {rel} >= {TOL[dtype]}")
-            if n == 2 * BRUSS_SITES:
+            if n == 2 * BRUSS_SITES or (n, offsets) in [
+                    c[:2] for c in PDE_DIA]:
                 worst_path = max(worst_path, abs_err)
     return max(worst_path, compare_dia_replaced())
 
@@ -1503,7 +1532,8 @@ def _small_cp(**kw):
 
 def check_small_codim2():
     """Small codim-2 curves on the card against the CPU: the cusp's fold
-    curve (dense and matrix-free) and the exact Hopf curve (matrix-free);
+    curve (dense and matrix-free) and the exact Hopf curve (matrix-free),
+    then the dense codim-2 family (`check_small_codim2_family`);
     `bruss_hopf_curve` holds the matrix-free Hopf curve through the DIA
     kernel against the CPU at full width."""
     curves, seconds = {}, {}
@@ -1548,6 +1578,574 @@ def check_small_codim2():
         if not (gap <= 1e-9 and same_sp):
             raise AssertionError(f"the {name} curve on the card differs "
                                  f"from the CPU's: {gap}, {same_sp}")
+    check_small_codim2_family()
+
+
+# ---------------------------------------------------------------------------
+# 4j. codim2_bt_pde / codim2_zh_pde: matrix-free codim-2 normal forms,
+#     unfoldings and switching at the PDE models' full width, every plain
+#     J.v through dia_spmv
+# ---------------------------------------------------------------------------
+
+# test_minaug_mf.py:670-749 at its 40 x 40 (3,200 unknowns); depth cut: the
+# branch starts at (b1, b2) = (0.05, 0.6), near its fold at b1 = 0.09, so
+# the fold curve meets the BT within 6 steps (the JAX test starts at
+# (0.5, 2.0): 25 branch and 20 curve steps more)
+BT_N = 40
+BT_START = dict(b1=0.05, b2=0.6)
+BT_CURVE_STEPS = 6
+BT_HOPF_STEPS = 6
+# test_minaug_mf.py:471-534 at its 32 x 32 (3,072 unknowns), from the upper
+# branch s = +sqrt(-p1) at p1 = -0.05 and from a = -0.2: the first state
+# past the fold then has s < 0 and the fold curve is the constant mode's,
+# p1 = 0 exactly (from the JAX test's lower-branch start both packages
+# follow the mode-1 fold curve p1 = -0.0156); 3 curve steps meet the ZH
+FH_N = 32
+FH_START = dict(p1=-0.05, a=-0.2)
+FH_CURVE_STEPS = 3
+FH_HOPF_STEPS = 6
+PDE_RTOL = 1e-8            # kernel against plain, card against CPU
+CODIM2_BUDGET_S = 150      # the two PDE phases and check_small_codim2
+
+
+def _pde_ls(prob):
+    return bk.GMRES(restart=40, maxiter=300, rtol=1e-10,
+                    precond=prob.spectral_precond)
+
+
+def bt_pde_model(device, **kw):
+    return models.bogdanov_takens_2d(Nx=BT_N, Ny=BT_N, device=device,
+                                     **BT_START, **kw)
+
+
+def fh_pde_model(device, **kw):
+    prob = models.fold_hopf_interaction_2d(Nx=FH_N, Ny=FH_N, device=device,
+                                           **FH_START, **kw)
+    u0 = prob.u0.clone()
+    u0[0] = np.sqrt(-FH_START["p1"])
+    return prob.re_make(u0=u0)
+
+
+class _Parts:
+    """Seconds of consecutive parts on the host clock, the card
+    synchronised at each boundary."""
+
+    def __init__(self, device):
+        self.device, self.s = device, {}
+        _sync(device)
+        self.t = time.perf_counter()
+
+    def __call__(self, name):
+        _sync(self.device)
+        now = time.perf_counter()
+        self.s[name] = now - self.t
+        self.t = now
+
+
+def _nearest(gamma, kind):
+    idx = [i for i, sp in enumerate(gamma.specialpoint) if sp.type == kind]
+    if not idx:
+        raise AssertionError(f"no {kind} point on the curve: "
+                             f"{[sp.type for sp in gamma.specialpoint]}")
+    return min(idx, key=lambda i: abs(float(gamma.specialpoint[i].param)))
+
+
+def bt_pde_leg(device, stamps=None):
+    """The flow of test_minaug_mf.py:670-749: the equilibrium branch in b1
+    to its fold, the matrix-free fold curve in b2 with the BT event,
+    `get_normal_form_codim2` (routed matrix-free), `bt_unfolding` and the
+    homoclinic predictor at the exact BT, and `switch_codim2` to the
+    matrix-free Hopf curve."""
+    prob = bt_pde_model(device)
+    ls = _pde_ls(prob)
+    parts = _Parts(device)
+    br = bk.continuation(prob, bk.PALC(), bk.ContinuationPar(
+        ds=0.01, dsmax=0.02, dsmin=1e-6, p_min=0.0, p_max=1.5, max_steps=12,
+        detect_bifurcation=0, detect_fold=True,
+        newton_options=bk.NewtonPar(tol=1e-9, max_iterations=25,
+                                    linsolver=ls)))
+    parts("branch_s")
+    ifold = next(i for i, sp in enumerate(br.specialpoint)
+                 if sp.type == "fold")
+    # the quarter domain's stiffness puts the MA residual floor near 3e-8
+    # (test_minaug_mf.py:722-723)
+    cp2 = bk.ContinuationPar(
+        ds=-0.1, dsmax=0.2, dsmin=1e-6, p_min=-2.5, p_max=2.5,
+        max_steps=BT_CURVE_STEPS, detect_bifurcation=0, detect_fold=False,
+        newton_options=bk.NewtonPar(tol=1e-7, max_iterations=30,
+                                    linsolver=ls))
+    brf = bk.continuation_fold(br, ifold, "b2", cp2,
+                               detect_codim2_bifurcation=2,
+                               jacobian_ma="minaug")
+    parts("fold_curve_s")
+    ibt = _nearest(brf.gamma, "bt")
+    nf = bk.get_normal_form_codim2(brf, ibt)
+    parts("normal_form_s")
+    x0 = torch.zeros_like(prob.u0)
+    par0 = {k: torch.zeros_like(v) for k, v in prob.params.items()}
+    unf = bk.bt_unfolding(prob, x0, par0, bk.as_lens("b1"),
+                          bk.as_lens("b2"), matrix_free=True)
+    hom = bk.predictor_homoclinic_bt(unf, 0.05)
+    parts("unfolding_s")
+    kw = {} if stamps is None else {"finalise_solution": stamps}
+    brh = bk.switch_codim2(brf, ibt, cp2.replace(ds=-0.05, dsmax=0.1,
+                                                 max_steps=BT_HOPF_STEPS),
+                           detect_codim2_bifurcation=0, **kw)
+    parts("switch_s")
+    return dict(prob=prob, br=br, brf=brf, ibt=ibt, nf=nf, unf=unf, hom=hom,
+                brh=brh, parts=parts.s)
+
+
+def _bt_forms(prob, x, params, seed):
+    """The BT form at a curve's point (as `get_normal_form_codim2` takes
+    it: matrix-free, seeded with the curve's anchor) and the unfolding at
+    the exact BT, on `prob`'s device: a, b, K10, K11, K2."""
+    nf = bk.bt_normal_form(prob, x, params, matrix_free=True, seed=seed)
+    dev = prob.u0.device
+    par0 = {k: torch.zeros_like(v) for k, v in prob.params.items()}
+    unf = bk.bt_unfolding(prob, torch.zeros_like(prob.u0), par0,
+                          bk.as_lens("b1"), bk.as_lens("b2"),
+                          matrix_free=True)
+    out = {"curve_a": nf.nf["a"], "curve_b": nf.nf["b"]}
+    out.update({k: torch.as_tensor(unf[k]).to(dev) for k in
+                ("a", "b", "K10", "K11", "K2")})
+    return out
+
+
+def _form_gaps(got, ref):
+    """Largest gap of each coefficient, relative to max(|c|, 1)."""
+    gaps = {}
+    for k, r in ref.items():
+        a = torch.as_tensor(got[k]).cpu().to(torch.complex128)
+        b = torch.as_tensor(r).cpu().to(torch.complex128)
+        gaps[k] = float((a - b).abs().max() / max(float(b.abs().max()),
+                                                   1.0))
+    return gaps
+
+
+def _cpu(tree):
+    return {k: (v.cpu() if isinstance(v, torch.Tensor) else v)
+            for k, v in tree.items()}
+
+
+def codim2_bt_pde(card):
+    """`bogdanov_takens_2d` at 40 x 40 on the card (f64, every plain J.v
+    through dia_spmv), held to its exact geometry, the kernel against the
+    plain version and the card against the CPU."""
+    reset_launches()
+    stamps = StepStamps(profile_after=BT_HOPF_STEPS - 1)
+    t0 = time.perf_counter()
+    with GmresLog() as log:
+        leg = bt_pde_leg("cuda", stamps=stamps)
+    seconds = time.perf_counter() - t0
+    launches = dia_spmv.launches
+    sh_launches = sh_jv_mod.sh_jv.launches
+    prob, brf, brh, unf = leg["prob"], leg["brf"], leg["brh"], leg["unf"]
+    n = prob.u0.numel()
+    s = 1.0 / BT_N
+    tf = interop.codim2_branch_to_numpy(brf)
+    th = interop.codim2_branch_to_numpy(brh)
+    a, b = leg["nf"].nf["a"], leg["nf"].nf["b"]
+    bt_sp = brf.gamma.specialpoint[leg["ibt"]]
+    K11 = unf["K11"].cpu().numpy()
+    checks = dict(
+        fold_curve_gap=float(np.max(np.abs(tf["p1"] - tf["param"] ** 2 / 4))),
+        bt_b2=float(bt_sp.param), curve_a=a, curve_b=b,
+        exact_a_gap=abs(unf["a"] - s), exact_b_gap=abs(unf["b"] + s),
+        K11=K11.tolist(), hopf_points=len(th["param"]),
+        hopf_min_b2=float(np.min(th["param"])),
+        hopf_b1_gap=float(np.max(np.abs(th["p1"]))),
+        hopf_omega2_gap=float(np.max(np.abs(th["omega"] ** 2
+                                            + th["param"]))),
+        homoclinic_finite=bool(torch.all(torch.isfinite(
+            leg["hom"]["orbit"](0.3)))))
+    phase("codim2_bt_pde", unknowns=n, seconds=seconds, parts=leg["parts"],
+          branch_steps=len(leg["br"]) - 1, fold_curve_steps=len(brf) - 1,
+          hopf_steps=len(brh) - 1, special=list(tf["sp_type"]),
+          fold_curve_itnewton=np.asarray(brf.gamma["itnewton"]).tolist(),
+          hopf_itnewton=np.asarray(brh.gamma["itnewton"]).tolist(),
+          gmres=log.summary(n), dia_spmv_launches=launches,
+          sh_jv_launches=sh_launches, card=repr(card), **checks)
+    ok = (checks["fold_curve_gap"] <= 1e-6 and abs(checks["bt_b2"]) < 5e-2
+          and a * b < 0 and abs(abs(a) - s) < 0.1 * s
+          and checks["exact_a_gap"] <= 1e-10
+          and checks["exact_b_gap"] <= 1e-10
+          and np.max(np.abs(K11 - [0.0, 2.0])) <= 1e-8
+          and checks["hopf_points"] >= 5 and checks["hopf_min_b2"] < -0.2
+          and checks["hopf_b1_gap"] <= 1e-6
+          and checks["hopf_omega2_gap"] <= 1e-6
+          and checks["homoclinic_finite"]
+          and getattr(brh.gamma.prob, "ma_mf", False))
+    if not ok:
+        raise AssertionError(f"codim2_bt_pde: exact geometry fails: {checks}")
+    if launches <= 0 or sh_launches != 0:
+        raise AssertionError(f"codim2_bt_pde launched dia_spmv {launches} "
+                             f"and sh_jv {sh_launches} times")
+    _pde_breakdown("codim2_bt_pde_breakdown", stamps, BT_HOPF_STEPS)
+
+    # the same forms at the same points through the plain version on the
+    # card, and on the CPU (plain, one thread)
+    _, _, x, params, _, _ = _codim2_point_context(brf, leg["ibt"])
+    seed = brf.gamma.prob.params["_b"]
+    card_f = {"curve_a": a, "curve_b": b,
+              **{k: unf[k] for k in ("a", "b", "K10", "K11", "K2")}}
+    t1 = time.perf_counter()
+    plain = _bt_forms(bt_pde_model("cuda", spmv=dia_spmv_plain), x, params,
+                      seed)
+    plain_s = time.perf_counter() - t1
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    t1 = time.perf_counter()
+    cpu = _bt_forms(bt_pde_model("cpu"), x.cpu(), _cpu(params), seed.cpu())
+    cpu_s = time.perf_counter() - t1
+    torch.set_num_threads(threads)
+    gp, gc = _form_gaps(card_f, plain), _form_gaps(card_f, cpu)
+    phase("codim2_bt_pde_check", plain_gaps=gp, cpu_gaps=gc, tol=PDE_RTOL,
+          plain_seconds=plain_s, cpu_seconds=cpu_s)
+    if not max(list(gp.values()) + list(gc.values())) <= PDE_RTOL:
+        raise AssertionError(f"the BT forms through the kernel differ from "
+                             f"the plain version's or the CPU's: {gp} {gc}")
+    return launches
+
+
+def _pde_breakdown(tag, stamps, steps):
+    """One step of a switched matrix-free Hopf curve under torch.profiler
+    (the step after stamp `steps - 1`) beside its unprofiled steps:
+    launches, busy time, idle share and dia_spmv's share of the busy
+    time."""
+    if stamps.rows is None:
+        raise AssertionError(f"{tag}: the profiled step did not run")
+    timed = np.diff(stamps.t[:steps - 1])
+    fields, busy = _busy_fields(stamps.rows, stamps.profiled_s, "dia_spmv",
+                                timed, stamps.p[steps - 1])
+    share = (fields["dia_spmv_device_s"] / busy) if busy else "not measured"
+    phase(tag, step=steps, dia_spmv_share_of_busy=share, **fields)
+
+
+def fh_pde_leg(device, stamps=None):
+    """The flow of test_minaug_mf.py:471-534: the branch to its fold, the
+    matrix-free fold curve in a with the ZH event (the inner spectrum by a
+    128-wide Arnoldi: the default width carries about 0.2 of real-part
+    bias here), `get_normal_form_codim2` at the ZH (matrix-free), and
+    `switch_codim2` to the matrix-free Hopf curve."""
+    prob = fh_pde_model(device)
+    ls = _pde_ls(prob)
+    parts = _Parts(device)
+    br = bk.continuation(prob, bk.PALC(), bk.ContinuationPar(
+        ds=0.02, dsmax=0.03, dsmin=1e-6, p_min=-0.3, p_max=0.3, max_steps=10,
+        detect_bifurcation=0, detect_fold=True,
+        newton_options=bk.NewtonPar(tol=1e-9, max_iterations=25,
+                                    linsolver=ls)))
+    parts("branch_s")
+    ifold = next(i for i, sp in enumerate(br.specialpoint)
+                 if sp.type == "fold")
+    brf = bk.continuation_fold(br, ifold, "a", bk.ContinuationPar(
+        ds=0.05, dsmax=0.1, dsmin=1e-6, p_min=-0.8, p_max=0.8,
+        max_steps=FH_CURVE_STEPS, detect_bifurcation=2, nev=6,
+        n_inversion=4, newton_options=bk.NewtonPar(
+            tol=1e-9, max_iterations=25, linsolver=ls,
+            eigsolver=bk.ArnoldiEig(which="LR", krylov_dim=128, restarts=8,
+                                    tol=1e-6))),
+        detect_codim2_bifurcation=2, jacobian_ma="minaug")
+    parts("fold_curve_s")
+    izh = _nearest(brf.gamma, "zh")
+    nf = bk.get_normal_form_codim2(brf, izh)
+    parts("normal_form_s")
+    kw = {} if stamps is None else {"finalise_solution": stamps}
+    brh = bk.switch_codim2(brf, izh, bk.ContinuationPar(
+        ds=0.05, dsmax=0.1, dsmin=1e-6, p_min=-0.8, p_max=0.8,
+        max_steps=FH_HOPF_STEPS, detect_bifurcation=0, detect_fold=False,
+        newton_options=bk.NewtonPar(tol=1e-9, max_iterations=25,
+                                    linsolver=ls)),
+        detect_codim2_bifurcation=0, **kw)
+    parts("switch_s")
+    return dict(prob=prob, br=br, brf=brf, izh=izh, nf=nf, brh=brh,
+                parts=parts.s)
+
+
+def _zh_coefs(pt):
+    """G200, G011, G110 aligned to q0 with a positive mean (they flip
+    together with q0's sign), and omega."""
+    sgn = float(torch.sign(torch.sum(pt.zeta[0])))
+    return {"G200": sgn * pt.nf["G200"], "G011": sgn * pt.nf["G011"],
+            "G110": sgn * pt.nf["G110"], "omega": pt.omega}
+
+
+def codim2_zh_pde(card):
+    """`fold_hopf_interaction_2d` at 32 x 32 on the card through dia_spmv,
+    held to its exact geometry, the kernel against the plain version and
+    the card against the CPU."""
+    reset_launches()
+    t0 = time.perf_counter()
+    with GmresLog() as log:
+        leg = fh_pde_leg("cuda")
+    seconds = time.perf_counter() - t0
+    launches = dia_spmv.launches
+    sh_launches = sh_jv_mod.sh_jv.launches
+    prob, brf, brh = leg["prob"], leg["brf"], leg["brh"]
+    n = prob.u0.numel()
+    tf = interop.codim2_branch_to_numpy(brf)
+    th = interop.codim2_branch_to_numpy(brh)
+    zh_sp = brf.gamma.specialpoint[leg["izh"]]
+    card_f = _zh_coefs(leg["nf"])
+    exact = {"G200": 2.0 / FH_N, "G011": 0.0, "G110": 1.0 / FH_N}
+    checks = dict(
+        fold_curve_max_abs_p1=float(np.max(np.abs(tf["p1"]))),
+        zh_a=float(zh_sp.param), forms=card_f,
+        exact_gaps={k: abs(abs(card_f[k]) - g) for k, g in exact.items()},
+        hopf_points=len(th["param"]),
+        hopf_gap=float(np.max(np.abs(th["p1"] + th["param"] ** 2))),
+        hopf_omega_gap=float(np.max(np.abs(th["omega"] - 1.0))))
+    phase("codim2_zh_pde", unknowns=n, seconds=seconds, parts=leg["parts"],
+          branch_steps=len(leg["br"]) - 1, fold_curve_steps=len(brf) - 1,
+          hopf_steps=len(brh) - 1, special=list(tf["sp_type"]),
+          fold_curve_itnewton=np.asarray(brf.gamma["itnewton"]).tolist(),
+          hopf_itnewton=np.asarray(brh.gamma["itnewton"]).tolist(),
+          gmres=log.summary(n), dia_spmv_launches=launches,
+          sh_jv_launches=sh_launches, card=repr(card), **checks)
+    ok = (checks["fold_curve_max_abs_p1"] <= 1e-8
+          and abs(checks["zh_a"]) < 0.12
+          and max(checks["exact_gaps"].values()) <= 1e-8
+          and checks["hopf_points"] >= 4 and checks["hopf_gap"] <= 1e-8
+          and checks["hopf_omega_gap"] <= 1e-9
+          and getattr(brh.gamma.prob, "ma_mf", False))
+    if not ok:
+        raise AssertionError(f"codim2_zh_pde: exact geometry fails: {checks}")
+    if launches <= 0 or sh_launches != 0:
+        raise AssertionError(f"codim2_zh_pde launched dia_spmv {launches} "
+                             f"and sh_jv {sh_launches} times")
+
+    _, _, x, params, _, _ = _codim2_point_context(brf, leg["izh"])
+    t1 = time.perf_counter()
+    plain = _zh_coefs(bk.zh_normal_form(
+        fh_pde_model("cuda", spmv=dia_spmv_plain), x, params,
+        matrix_free=True))
+    plain_s = time.perf_counter() - t1
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    t1 = time.perf_counter()
+    cpu = _zh_coefs(bk.zh_normal_form(fh_pde_model("cpu"), x.cpu(),
+                                      _cpu(params), matrix_free=True))
+    cpu_s = time.perf_counter() - t1
+    torch.set_num_threads(threads)
+    gp, gc = _form_gaps(card_f, plain), _form_gaps(card_f, cpu)
+    phase("codim2_zh_pde_check", plain_gaps=gp, cpu_gaps=gc, tol=PDE_RTOL,
+          plain_seconds=plain_s, cpu_seconds=cpu_s)
+    if not max(list(gp.values()) + list(gc.values())) <= PDE_RTOL:
+        raise AssertionError(f"the ZH form through the kernel differs from "
+                             f"the plain version's or the CPU's: {gp} {gc}")
+    return launches
+
+
+# the dense codim-2 family of check_small_codim2: Lorenz-84's zero-Hopf and
+# its fold curve, the CO model's BT, cusp and Hopf curve, the BT model's
+# Hopf curve from its BT, the two-oscillator model's other Hopf curve, the
+# quintic Bautin model's unfolding (tests/_codim2_models.py, tests/
+# test_torch_switch_codim2.py, tests/test_torch_co_tm.py)
+L84_START = ({"a": 0.25, "b": 4.0, "G": 1.6, "F": 1.64},
+             [1.18467, -0.013138, 0.337135, 0.0])
+
+
+def _small_bt_model(dev):
+    """x' = y, y' = b1 + b2 x + x^2 - x y, on its fold branch at
+    (b1, b2) = (0.05, 0.6), near its fold at b1 = 0.09."""
+    d = dict(dtype=torch.float64, device=dev)
+
+    def F(u, par):
+        return torch.stack([u[1], par["b1"] + par["b2"] * u[0]
+                            + u[0] * u[0] - u[0] * u[1]])
+
+    return bk.BifurcationProblem(
+        F, u0=torch.tensor([-0.1, 0.0], **d),
+        params={"b1": torch.tensor(0.05, **d), "b2": torch.tensor(0.6, **d)},
+        lens="b1")
+
+
+def _small_hh_model(dev):
+    """Two oscillators with quadratic couplings: pair 1 on b1 = 0
+    (omega 0.9), pair 2 on b2 + 0.4 b1 = 0 (omega 1.7)."""
+    d = dict(dtype=torch.float64, device=dev)
+
+    def F(u, par):
+        x1, y1, x2, y2 = u[0], u[1], u[2], u[3]
+        ua1, ua2 = x1 * x1 + y1 * y1, x2 * x2 + y2 * y2
+        m1 = par["b1"] - 0.5 * ua1 - 1.0 * ua2
+        m2 = par["b2"] + 0.4 * par["b1"] - 2.0 * ua1 - 1.5 * ua2
+        q1r = 0.3 * (x1 * x2 - y1 * y2) + 0.1 * (x2 * x1 + y2 * y1)
+        q1i = 0.3 * (x1 * y2 + y1 * x2) + 0.1 * (y2 * x1 - x2 * y1)
+        q2r = 0.2 * (x1 * x1 - y1 * y1) + 0.15 * (x1 * x2 + y1 * y2)
+        q2i = 0.2 * (2 * x1 * y1) + 0.15 * (y1 * x2 - x1 * y2)
+        return torch.stack([m1 * x1 - 0.9 * y1 + q1r, m1 * y1 + 0.9 * x1 + q1i,
+                            m2 * x2 - 1.7 * y2 + q2r,
+                            m2 * y2 + 1.7 * x2 + q2i])
+
+    return bk.BifurcationProblem(
+        F, u0=torch.zeros(4, **d),
+        params={"b1": torch.tensor(-0.06, **d),
+                "b2": torch.tensor(-0.07, **d)}, lens="b1")
+
+
+def _small_quintic(dev):
+    """z' = (p1 + 1.3 i) z + (p2 + 0.4 i) z|z|^2 + (-2 + 0.1 i) z|z|^4."""
+    d = dict(dtype=torch.float64, device=dev)
+
+    def F(u, par):
+        x, y = u[0], u[1]
+        zz = x * x + y * y
+        cr = par["p1"] + par["p2"] * zz - 2.0 * zz * zz
+        ci = 1.3 + 0.4 * zz + 0.1 * zz * zz
+        return torch.stack([cr * x - ci * y, cr * y + ci * x])
+
+    return bk.BifurcationProblem(
+        F, u0=torch.zeros(2, **d),
+        params={"p1": torch.tensor(0.0, **d), "p2": torch.tensor(0.0, **d)},
+        lens="p1")
+
+
+def _first_of(gamma, kind):
+    return next(i for i, sp in enumerate(gamma.specialpoint)
+                if sp.type == kind)
+
+
+def _small_family(dev):
+    """The dense codim-2 cases on `dev`: (curves, coefficients)."""
+    nt = lambda **kw: bk.NewtonPar(**kw)               # noqa: E731
+    curves, coef = {}, {}
+    # Lorenz-84: the Hopf curve in G from its branch's Hopf point, the
+    # zero-Hopf that the GH test finds, its normal form, and the fold
+    # curve through it
+    par, u0 = L84_START
+    l84 = models.lorenz84(params=par, device=dev).re_make(
+        u0=torch.tensor(u0, dtype=torch.float64, device=dev))
+    br = bk.continuation(l84, bk.PALC(), bk.ContinuationPar(
+        ds=-0.005, dsmax=0.01, dsmin=1e-6, p_min=-1.0, p_max=5.0,
+        max_steps=4, detect_bifurcation=3, nev=4, n_inversion=6,
+        newton_options=nt(tol=1e-10, max_iterations=30)))
+    cp2 = bk.ContinuationPar(
+        ds=0.01, dsmax=0.03, dsmin=1e-6, p_min=0.0001, p_max=1.75,
+        max_steps=4, detect_bifurcation=0, detect_fold=False,
+        max_bisection_steps=4, newton_options=nt(tol=1e-9,
+                                                 max_iterations=30))
+    brh = bk.continuation_hopf(br, _first_of(br, "hopf"), "G", cp2,
+                               detect_codim2_bifurcation=2)
+    izh = _first_of(brh.gamma, "zh")
+    _, inner, x, params, _, _ = _codim2_point_context(brh, izh)
+    zh = bk.zh_normal_form(inner, x, params)
+    coef["lorenz84_zh"] = _zh_coefs(zh)
+    curves["lorenz84_hopf"] = brh
+    curves["lorenz84_zh_fold"] = bk.switch_codim2(
+        brh, izh, cp2.replace(max_steps=4))
+    # CO: the fold curve in k from the branch's first fold both ways, its
+    # BT (k up) and cusp (k down) forms, and l2 at a point of its Hopf curve
+    co = models.co_oxidation(device=dev)
+    brc = bk.continuation(co, bk.PALC(), bk.ContinuationPar(
+        ds=0.002, dsmax=0.005, dsmin=1e-6, p_min=0.95, p_max=1.06,
+        max_steps=60, detect_bifurcation=3, nev=3, n_inversion=6,
+        max_bisection_steps=25, newton_options=nt(tol=1e-10)))
+    ifold = next(i for i, sp in enumerate(brc.specialpoint)
+                 if sp.type in ("fold", "bp"))
+    for name, ds, dsmax, kind in (("co_fold_up", 0.02, 0.08, "bt"),
+                                  ("co_fold_down", -0.005, 0.02, "cusp")):
+        brf = bk.continuation_fold(brc, ifold, "k", bk.ContinuationPar(
+            ds=ds, dsmax=dsmax, dsmin=1e-7, p_min=0.0, p_max=1.0,
+            max_steps=10, detect_bifurcation=0, detect_fold=False,
+            n_inversion=8, newton_options=nt(tol=1e-9, max_iterations=30)),
+            detect_codim2_bifurcation=2)
+        curves[name] = brf
+        pt = bk.get_normal_form_codim2(brf, _first_of(brf.gamma, kind))
+        coef[f"co_{kind}"] = dict(pt.nf)
+    ih = _first_of(brc, "hopf")
+    brch = bk.continuation_hopf(brc, ih, "k", bk.ContinuationPar(
+        ds=-0.001, dsmax=0.02, dsmin=1e-6, p_min=0.0, p_max=2.8,
+        max_steps=4, detect_bifurcation=0, detect_fold=False,
+        newton_options=nt(tol=1e-9, max_iterations=30)),
+        detect_codim2_bifurcation=0)
+    curves["co_hopf"] = brch
+    _, inner, x, params, _, _ = _codim2_point_context(
+        brch, _first_of(brch.gamma, "endpoint"))
+    gh = bk.bautin_normal_form(inner, x, params)
+    coef["co_bautin"] = {k: gh.nf[k] for k in ("l1", "l2")}
+    # the BT model: the fold curve to its BT, then the Hopf curve
+    btm = _small_bt_model(dev)
+    cpb = dict(dsmin=1e-5, nev=2, n_inversion=4,
+               newton_options=nt(tol=1e-10, max_iterations=30))
+    brb = bk.continuation(btm, bk.PALC(), bk.ContinuationPar(
+        ds=0.01, dsmax=0.02, p_min=0.0, p_max=1.5, max_steps=12,
+        detect_bifurcation=2, detect_fold=True, **cpb))
+    cpf = bk.ContinuationPar(ds=-0.1, dsmax=0.2, p_min=-2.5, p_max=2.5,
+                             max_steps=8, detect_bifurcation=0,
+                             detect_fold=False, **cpb)
+    brbf = bk.continuation_fold(brb, _first_of(brb, "fold"), "b2", cpf,
+                                detect_codim2_bifurcation=2)
+    curves["bt_model_hopf"] = bk.switch_codim2(
+        brbf, _first_of(brbf.gamma, "bt"), cpf.replace(ds=-0.05,
+                                                       max_steps=8))
+    # the two-oscillator model: the first Hopf curve to its HH, then the
+    # other Hopf curve
+    hh = _small_hh_model(dev)
+    brq = bk.continuation(hh, bk.PALC(), bk.ContinuationPar(
+        ds=0.02, dsmax=0.05, dsmin=1e-6, p_min=-0.5, p_max=0.4, max_steps=6,
+        detect_bifurcation=3, nev=4, n_inversion=6,
+        newton_options=nt(tol=1e-10)))
+    cph = bk.ContinuationPar(
+        ds=0.02, dsmax=0.05, dsmin=1e-6, p_min=-0.5, p_max=0.5, max_steps=3,
+        detect_bifurcation=3, nev=4, n_inversion=4, detect_fold=False,
+        tol_stability=1e-6, newton_options=nt(tol=1e-10, max_iterations=25))
+    brq2 = bk.continuation_hopf(brq, _first_of(brq, "hopf"), "b2", cph,
+                                detect_codim2_bifurcation=2)
+    curves["hh_other_hopf"] = bk.switch_codim2(
+        brq2, _first_of(brq2.gamma, "hh"),
+        cph.replace(max_steps=5, detect_bifurcation=0))
+    # the quintic Bautin model: the unfolding and the fold-of-PO predictor
+    qb = _small_quintic(dev)
+    nf = bk.bautin_unfolding(qb, torch.zeros_like(qb.u0), qb.params,
+                             bk.as_lens("p1"), bk.as_lens("p2"))
+    pred = bk.predictor_fold_po(nf, 0.1)
+    coef["quintic_bautin"] = {
+        **{k: nf[k] for k in ("l1", "l2", "g110", "g101", "g210", "g201",
+                              "omega")},
+        "alpha0": float(nf["alpha"][0]), "alpha1": float(nf["alpha"][1]),
+        "fold_po_p1": pred["p1"], "fold_po_p2": pred["p2"]}
+    return curves, coef
+
+
+def check_small_codim2_family():
+    """The dense codim-2 family on the card against the CPU: curves to
+    1e-9, coefficients to 1e-8 relative to max(|c|, 1)."""
+    results, seconds = {}, {}
+    threads = torch.get_num_threads()
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        torch.set_num_threads(1)          # small tensors: threads contend
+        results[dev] = _small_family(dev)
+        torch.set_num_threads(threads)
+        _sync(dev)
+        seconds[dev] = time.perf_counter() - t0
+    (cc, fc), (cp_, fp_) = results["cuda"], results["cpu"]
+    worst_curve, worst_coef = 0.0, 0.0
+    for name in cc:
+        a = interop.codim2_branch_to_numpy(cc[name])
+        b = interop.codim2_branch_to_numpy(cp_[name])
+        same = (len(a["param"]) == len(b["param"])
+                and list(a["sp_type"]) == list(b["sp_type"]))
+        gap = max(float(np.max(np.abs(a[k] - b[k])))
+                  for k in ("param", "p1", "omega") if k in a) \
+            if same else np.inf
+        worst_curve = max(worst_curve, gap)
+        phase("check_small_codim2", curve=name, steps=len(a["param"]) - 1,
+              max_abs_gap=gap, special=list(a["sp_type"]),
+              kind=cc[name].gamma.prob.ma_kind, seconds=seconds)
+    for name in fc:
+        gaps = _form_gaps(fc[name], fp_[name])
+        worst_coef = max(worst_coef, max(gaps.values()))
+        phase("check_small_codim2_form", case=name,
+              coefficients={k: (complex(v) if isinstance(v, complex)
+                                else float(v)) for k, v in fc[name].items()},
+              rel_gaps=gaps, tol=PDE_RTOL)
+    if not (worst_curve <= 1e-9 and worst_coef <= PDE_RTOL):
+        raise AssertionError(f"the dense codim-2 family on the card differs "
+                             f"from the CPU's: curves {worst_curve}, "
+                             f"coefficients {worst_coef}")
 
 
 # ---------------------------------------------------------------------------
@@ -2511,10 +3109,13 @@ def _csr_of(A):
 
 def time_dia(floor):
     cases = []
-    for n, offsets in ((2 * BRUSS_SITES, PATH_OFFSETS),
-                       (1 << 20, (-1024, -1, 0, 1, 1024))):
-        for dtype in (torch.float32, torch.float64):
-            A, v = _dia_inputs(n, offsets, 1, dtype, seed=7)
+    f32_64 = (torch.float32, torch.float64)
+    for n, offsets, K, dtypes in (
+            (2 * BRUSS_SITES, PATH_OFFSETS, 1, f32_64),
+            (1 << 20, (-1024, -1, 0, 1, 1024), 1, f32_64),
+            *[(n, off, K, (torch.float64,)) for n, off, K in PDE_DIA]):
+        for dtype in dtypes:
+            A, v = _dia_inputs(n, offsets, K, dtype, seed=7)
             csr = _csr_of(A)
             reps = 2000 if n < 4096 else 300
 
@@ -2525,7 +3126,8 @@ def time_dia(floor):
                 return dia_spmv_plain(A, v)
 
             def library():
-                return csr @ v
+                # SpMV, or SpMM on the K vectors as columns
+                return csr @ v if K == 1 else (csr @ v.T).T
 
             ref = plain()
             lib_rel = float((library() - ref).abs().max() / ref.abs().max())
@@ -2535,7 +3137,7 @@ def time_dia(floor):
             tk2, tp2, tl2 = _time(kern, reps), _time(plain, reps), \
                 _time(library, reps)
             case = dict(dtype=str(dtype).split(".")[-1], n=n,
-                        offsets=list(offsets), K=1, ms=(tk1 + tk2) / 2,
+                        offsets=list(offsets), K=K, ms=(tk1 + tk2) / 2,
                         host_ms=_host_time(kern, reps),
                         device_ms=_device_time(kern, "dia_spmv_kernel"),
                         plain_ms=(tp1 + tp2) / 2,
@@ -2543,18 +3145,20 @@ def time_dia(floor):
                         library_ms=(tl1 + tl2) / 2,
                         library_host_ms=_host_time(library, reps),
                         library_device_ms=_device_time(library),
-                        library="cuSPARSE CSR SpMV (torch sparse_csr @ v)",
+                        library="cuSPARSE CSR SpMV (torch sparse_csr @ v)"
+                        if K == 1 else "cuSPARSE CSR SpMM (torch sparse_csr"
+                        " @ v.T)",
                         library_max_rel_err=lib_rel,
-                        **_bound(dia_spmv_bytes(n, offsets, 1,
+                        **_bound(dia_spmv_bytes(n, offsets, K,
                                                 v.element_size()),
-                                 dia_spmv_flops(n, offsets, 1), dtype),
+                                 dia_spmv_flops(n, offsets, K), dtype),
                         **floor)
-            copies = _cold_copies(dia_spmv_bytes(n, offsets, 1,
+            copies = _cold_copies(dia_spmv_bytes(n, offsets, K,
                                                  v.element_size()))
             if copies:
                 kerns, libs = [], []
                 for c in range(copies):
-                    Ac, vc = _dia_inputs(n, offsets, 1, dtype, seed=100 + c)
+                    Ac, vc = _dia_inputs(n, offsets, K, dtype, seed=100 + c)
                     kerns.append(functools.partial(dia_spmv, Ac, vc))
                     libs.append(functools.partial(torch.matmul, _csr_of(Ac),
                                                   vc))
@@ -2627,7 +3231,16 @@ def main():
     walled("check_small_nf", lambda: check_small_nf(
         check_outputs(prob, state)))
     walled("check_bruss_small", check_bruss_small)
+    dia_phases["codim2_bt_pde"] = walled("codim2_bt_pde", codim2_bt_pde,
+                                         card)
+    dia_phases["codim2_zh_pde"] = walled("codim2_zh_pde", codim2_zh_pde,
+                                         card)
+    dia_launches = sum(dia_phases.values())
     walled("check_small_codim2", check_small_codim2)
+    codim2_s = sum(WALL_S[k] for k in ("codim2_bt_pde", "codim2_zh_pde",
+                                       "check_small_codim2"))
+    phase("codim2_budget", seconds=codim2_s, budget_s=CODIM2_BUDGET_S,
+          within_budget=codim2_s <= CODIM2_BUDGET_S)
     floor = device_floor()
     cases = walled("time_kernel", time_kernel, floor)
     dia_cases = walled("time_dia", time_dia, floor)
@@ -2655,10 +3268,12 @@ def main():
         "device_ms": head["device_ms"],
         "device_floor_ms": floor["device_floor_ms"],
         "launches_by_batch": by_batch,
-        # the periodic-orbit paths launch no sh_jv (checked)
+        # the periodic-orbit and codim-2 PDE paths launch no sh_jv
+        # (checked)
         "launches_by_phase": {**sh_phases, "po_cgl": po_launches["sh_jv"],
                               "po_bruss": pob_launches["sh_jv"],
-                              "po_bruss_shooting": posh_launches["sh_jv"]},
+                              "po_bruss_shooting": posh_launches["sh_jv"],
+                              "codim2_bt_pde": 0, "codim2_zh_pde": 0},
         "cases": cases,
     }, {
         "name": "dia_spmv", "route": "cuda",
@@ -2673,7 +3288,7 @@ def main():
         "library_host_ms": dhead["library_host_ms"],
         "library_device_ms": dhead["library_device_ms"],
         # po_cgl and po_bruss launch none (checked); po_bruss_shooting's
-        # matrix-free monodromy does (checked)
+        # matrix-free monodromy and the codim-2 PDE paths do (checked)
         "launches_by_phase": {**dia_phases,
                               "po_cgl": po_launches["dia_spmv"],
                               "po_bruss": pob_launches["dia_spmv"]},

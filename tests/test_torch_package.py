@@ -36,6 +36,37 @@ def test_imports_without_jax():
     assert int(out.stdout.strip()) >= 20
 
 
+# the JAX package's top-level names the port lacked before
+EVENTS_AND_ALIASES = (
+    "ContinuousEvent", "DiscreteEvent", "PairOfEvents", "SetOfEvents",
+    "bif_detect_event", "fold_detect_event", "save_at_event",
+    "ODEBifProblem", "PDEBifProblem")
+# the codim-2 normal forms, unfoldings and switching
+CODIM2 = (
+    "bautin_normal_form", "bt_normal_form", "bt_predictors",
+    "cusp_normal_form", "get_normal_form_codim2", "newton_bt",
+    "zh_normal_form", "hh_normal_form", "bautin_unfolding", "bt_unfolding",
+    "hh_unfolding", "zh_unfolding", "predictor_fold_po",
+    "predictor_homoclinic_bt", "predictor_ns_hh", "predictor_ns_zh",
+    "switch_codim2", "switch_codim2_mf")
+
+
+@pytest.mark.parametrize("name", EVENTS_AND_ALIASES + CODIM2)
+def test_public_names(name):
+    """Each name is exported at the top level; the codim-2 ones are the
+    same objects as in `codim2` (`normal_forms` for the Bautin form), and
+    the ODE/PDE constructors alias `BifurcationProblem`."""
+    import bifurcationkit.jl_tpu_torch as bt
+    from bifurcationkit.jl_tpu_torch import codim2, normal_forms
+
+    obj = getattr(bt, name)
+    if name in CODIM2:
+        home = normal_forms if name == "bautin_normal_form" else codim2
+        assert getattr(home, name) is obj
+    if name in ("ODEBifProblem", "PDEBifProblem"):
+        assert obj is bt.BifurcationProblem
+
+
 def test_entry_point_needs_the_card_unless_told(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
