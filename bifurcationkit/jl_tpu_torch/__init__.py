@@ -80,7 +80,8 @@ from .codim2 import (bautin_unfolding, bt_normal_form,  # noqa: E402
                      newton_fold, newton_hopf, predictor_fold_po,
                      predictor_homoclinic_bt, predictor_ns_hh,
                      predictor_ns_zh, refine_gh, switch_codim2,
-                     switch_codim2_mf, zh_normal_form, zh_unfolding)
+                     switch_codim2_mf, switch_codim2_po, zh_normal_form,
+                     zh_unfolding)
 from .periodic import (COPBLS, COPLS, Collocation,  # noqa: E402
                        FloquetColl, FloquetEig, FloquetGEV, FloquetQaDMF,
                        Flow, PoincareShooting, Shooting, Trapeze,
@@ -89,6 +90,12 @@ from .periodic import (COPBLS, COPLS, Collocation,  # noqa: E402
                        continuation_po, floquet_multipliers,
                        get_periodic_orbit, monodromy_from_maps, newton_po,
                        orbit_from_branch, periodic_orbit_problem)
+from .periodic import (bp_po_branch_switch, continuation_fold_po,  # noqa: E402
+                       continuation_ns, continuation_pd, cop_solve,
+                       cop_solve_bordered, get_normal_form_po,
+                       neimark_sacker_iooss, pd_branch_switch,
+                       period_doubling_iooss, po_codim2_test_values,
+                       poincare_return_map)
 
 __version__ = "0.1.0"
 

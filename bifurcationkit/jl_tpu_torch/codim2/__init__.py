@@ -1,7 +1,8 @@
 """Codim-2 continuation: minimally augmented fold and Hopf curves, dense
 (`minaug.py`) and matrix-free (`minaug_mf.py`), the codim-2 normal forms
 (`normal_forms.py`, `zh_hh.py`), their detailed unfoldings and
-predictors (`unfolding.py`), and switching between codim-2 curves."""
+predictors (`unfolding.py`), switching between codim-2 curves, and onto
+the periodic-orbit codim-2 curves (`switch_codim2_po`)."""
 from .minaug import (continuation_fold, continuation_hopf, fold_ma_problem,
                      hopf_ma_problem, newton_fold, newton_hopf, refine_gh,
                      switch_codim2)
@@ -14,4 +15,5 @@ from .normal_forms import (bt_normal_form, bt_predictors, cusp_normal_form,
 from .zh_hh import hh_normal_form, zh_normal_form
 from .unfolding import (bautin_unfolding, bt_unfolding, hh_unfolding,
                         predictor_fold_po, predictor_homoclinic_bt,
-                        predictor_ns_hh, predictor_ns_zh, zh_unfolding)
+                        predictor_ns_hh, predictor_ns_zh, switch_codim2_po,
+                        zh_unfolding)

@@ -456,7 +456,7 @@ def fold_ma_problem_mf(prob: BifurcationProblem, lens1, lens2,
                          "fold", eig_jacobian, ma_mf=True, fuse_step=False,
                          jac_op_paired=low_dtype is not None,
                          anchors_kernel=anchors_kernel, gm_ext=gm_ext,
-                         precond=precond)
+                         precond=precond, eig_tracked_zero=True)
 
 
 # ---------------------------------------------------------------------------

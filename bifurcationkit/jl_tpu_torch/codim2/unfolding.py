@@ -1,8 +1,9 @@
 """Detailed codim-2 normal-form unfoldings and their predictors — the port
-of `jl_tpu/codim2/unfolding.py` without `switch_codim2_po` (ref
-src/codim2/NormalForms.jl:141-506 BT with its homoclinic predictor,
-:642-958 Bautin with the fold-of-PO predictor, :959-1313 ZH with the NS
-predictor, :1315-1624 HH with the NS predictors).
+of `jl_tpu/codim2/unfolding.py` (ref src/codim2/NormalForms.jl:141-506 BT
+with its homoclinic predictor, :642-958 Bautin with the fold-of-PO
+predictor, :959-1313 ZH with the NS predictor, :1315-1624 HH with the NS
+predictors), and `switch_codim2_po`, which starts a periodic-orbit
+codim-2 curve (fold of PO, NS) from a codim-2 point of equilibria.
 
 The mathematics follows
   REF1  Kuznetsov 1999, "Numerical normalization techniques for all codim
@@ -966,3 +967,165 @@ def _codim2_point_context(br_codim2, ind_bif):
     params = maprob.lens.set(par_dict, sp.param)["_inner"]
     return (sp, maprob.inner_prob, maprob.unravel_inner(X[:n]), params,
             maprob.inner_lens, maprob.outer_lens)
+
+
+def switch_codim2_po(br_codim2, ind_bif: int, contparams, disc=None,
+                     eps: float = 0.05, which: int = 1,
+                     newton_options=None, verbose: bool = False,
+                     as_type=None, **kwargs):
+    """Start a PO codim-2 MA curve from a codim-2 equilibrium point (ref
+    the :FoldPeriodicOrbitCont / :NS predictors composed with the PO-MA
+    continuation, src/codim2/NormalForms.jl:935,1283,1536-1574):
+
+      gh (Bautin)    -> fold-of-PO curve
+      zh (Zero-Hopf) -> NS (torus) curve
+      hh (Hopf-Hopf) -> NS curve of family `which` (1 or 2)
+
+    The detailed unfolding at the point (matrix-free on a matrix-free
+    curve) predicts the orbit, its period and the two parameters at
+    amplitude `eps`; Newton on the PO functional at the predicted
+    parameters (not for the fold, whose predicted orbit sits at the fold);
+    the monodromy eigenpair near the predicted multiplier; then the
+    functional PO-MA continuation in the second parameter.  An NS start
+    that collapses onto the trivial multiplier falls back to the
+    on-branch flow: continue the orbit branch through the predicted point
+    with Floquet detection and start the NS curve at the detected
+    crossing."""
+    from ..core.lens import as_lens
+    from ..core.params import NewtonPar
+    from ..periodic.codim2 import _po_codim2_from_data
+    from ..periodic.collocation import Collocation
+    from ..periodic.orbits import newton_po, periodic_orbit_problem
+
+    sp, inner, x, params, lens1, lens2 = _codim2_point_context(
+        br_codim2, ind_bif)
+    sp_type = as_type or sp.type
+    maprob = getattr(br_codim2, "gamma", br_codim2).prob
+    mf_kw = {}
+    if bool(getattr(maprob, "ma_mf", False)):
+        mf_kw = dict(matrix_free=True, precond=getattr(maprob, "precond",
+                                                       None))
+        om = _curve_omega_sp(sp, maprob)
+        if om is not None and sp_type in ("gh", "zh"):
+            mf_kw["omega"] = om
+    if sp_type == "gh":
+        nf = bautin_unfolding(inner, x, params, lens1, lens2, **mf_kw)
+        pred = predictor_fold_po(nf, eps)
+        kind, theta_pred = "fold", 0.0
+    elif sp_type == "zh":
+        nf = zh_unfolding(inner, x, params, lens1, lens2, **mf_kw)
+        pred = predictor_ns_zh(nf, eps)
+        if not pred["hasNS"]:
+            raise ValueError(
+                "this ZH point has no NS curve (Re(G110) * G011 >= 0)")
+        kind, theta_pred = "ns", pred["k"]
+    elif sp_type == "hh":
+        nf = hh_unfolding(inner, x, params, lens1, lens2, **mf_kw)
+        pred = predictor_ns_hh(nf, eps, which=which)
+        kind, theta_pred = "ns", pred["k"]
+    else:
+        raise ValueError(f"point {ind_bif} has type {sp_type!r}; expected "
+                         "gh/zh/hh")
+    if verbose:
+        print(f"switch_codim2_po[{sp_type}->{kind}]: predicted "
+              f"(p1, p2) = ({pred['p1']:.6g}, {pred['p2']:.6g}), "
+              f"T = {pred['T']:.6g}, theta = {theta_pred:.4g}")
+
+    disc = disc or Collocation(Ntst=40, m=4)
+    par_pred = lens2.set(lens1.set(params, pred["p1"]), pred["p2"])
+    flat0 = ravel(inner.u0)[0]
+    vf = inner.re_make(params=par_pred)
+    X0 = disc.generate_solution(pred["orbit"], pred["T"], flat0.shape[0],
+                                dtype=flat0.dtype, device=flat0.device)
+    if kind == "fold":
+        # no plain Newton first: at fixed parameters it walks the predicted
+        # fold-amplitude orbit to the nearby regular cycle, after which the
+        # MA corrector can collapse onto the zero-amplitude solution; the
+        # predicted orbit sits at the fold and goes to the MA corrector
+        Xs = X0
+    else:
+        nopts = newton_options or NewtonPar(tol=1e-9, max_iterations=30)
+        sol, _ = newton_po(vf, disc, X0, options=nopts)
+        if not bool(sol.converged):
+            raise RuntimeError(
+                "switch_codim2_po: Newton on the predicted orbit failed; "
+                "try a different eps")
+        Xs = sol.u
+
+    po_prob = periodic_orbit_problem(vf, disc, Xs,
+                                     use_cop=isinstance(disc, Collocation))
+    par_po = po_prob.params
+    M = disc.monodromy(po_prob.prob_vf, Xs, par_po)
+    mult, vecs = dense_eig(M)
+    mult_np = _host(mult)
+    if kind == "ns":
+        cand = np.where(mult_np.imag > 1e-8)[0]
+        if len(cand) == 0:
+            raise RuntimeError("no complex multiplier pair at the "
+                               "predicted NS orbit")
+        i0 = int(cand[int(np.argmin(np.abs(mult_np[cand]
+                                           - np.exp(1j * theta_pred))))])
+        theta = float(np.angle(mult_np[i0]))
+    else:
+        order = np.argsort(np.abs(mult_np - 1.0))
+        i0 = int(order[1]) if len(order) > 1 else int(order[0])
+        theta = None
+    multT, vecsT = dense_eig(M.T)
+    iT = int(np.argmin(np.abs(_host(multT) - np.conj(mult_np[i0]))))
+    if verbose:
+        print(f"switch_codim2_po: critical multiplier "
+              f"{complex(mult_np[i0]):.6g}")
+    start = (Xs, pred["p1"], theta, vecs[:, i0], vecsT[:, iT], par_po)
+    try:
+        out = _po_codim2_from_data(po_prob, start, lens2, contparams, kind,
+                                   bp=sp, **kwargs)
+        if kind == "ns":
+            # the NS sigma vanishes spuriously at theta = 0 (mod 2 pi)
+            # through the trivial multiplier: a corrector that escaped to
+            # that basin rides the plain orbit family
+            thetas = np.asarray(out.gamma._table().get("theta", []))
+            if len(thetas) and np.min(np.abs(np.sin(thetas / 2.0))) < 0.02:
+                raise RuntimeError("NS MA collapsed onto the trivial "
+                                   "multiplier")
+        return out
+    except RuntimeError as err:
+        if kind != "ns":
+            raise
+        if verbose:
+            print(f"switch_codim2_po: direct MA start failed ({err}); "
+                  "falling back to on-branch NS detection")
+        from ..periodic.codim2 import continuation_ns
+        from ..periodic.floquet import FloquetColl
+        from ..periodic.orbits import continuation_po
+
+        # sweep axis 1 (p1); where the NS level set is near-tangent to it
+        # (Lorenz-84), sweep axis 2 with the parameter roles swapped
+        attempts = ((vf, pred["p1"], lens2),
+                    (vf.re_make(lens=lens2), pred["p2"], lens1))
+        for vf_c, p_c, lens_curve in attempts:
+            cpo = contparams.replace(
+                ds=abs(contparams.ds), dsmax=max(contparams.dsmax, 0.01),
+                p_min=p_c - 0.25, p_max=p_c + 0.25,
+                max_steps=20, detect_bifurcation=3, detect_event=0,
+                n_inversion=4, tol_stability=1e-5,
+                newton_options=contparams.newton_options.replace(
+                    linesearch=False, eigsolver=FloquetColl()))
+            br_po = continuation_po(vf_c, disc, Xs, cpo,
+                                    use_cop=isinstance(disc, Collocation),
+                                    floquet="coll", bothside=True)
+            ns_pts = [i for i, s2 in enumerate(br_po.gamma.specialpoint)
+                      if s2.type == "ns"]
+            if ns_pts:
+                if verbose:
+                    print("switch_codim2_po: NS detected on the orbit "
+                          "branch at "
+                          f"{br_po.gamma.specialpoint[ns_pts[0]].param:.6g}"
+                          f" (sweep lens {as_lens(vf_c.lens).name})")
+                out = continuation_ns(br_po, ns_pts[0], lens_curve,
+                                      contparams, **kwargs)
+                out.bp = sp
+                return out
+        raise RuntimeError(
+            "switch_codim2_po: no NS crossing detected on the orbit "
+            "branch around the predicted point (both parameter sweeps)"
+        ) from err

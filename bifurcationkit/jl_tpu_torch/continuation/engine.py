@@ -150,9 +150,19 @@ class ContIterable:
         state.eigvals = vals
         state.eigvecs = vecs
         state.converged_eig = cv
-        state.n_unstable = (int(np.sum(vals.real > tol)), state.n_unstable[0])
-        state.n_imag = (int(np.sum((np.abs(vals.imag) > tol)
-                                   & (vals.real > tol))), state.n_imag[0])
+        counted = vals
+        if getattr(self.prob, "eig_tracked_zero", False):
+            # a fold curve's own zero eigenvalue has a roundoff sign: leave
+            # the smallest-|lambda| near-real one out of the counts, or its
+            # flips read as real crossings (spurious bp -> bt labels)
+            realish = np.where(np.abs(vals.imag) <= tol)[0]
+            if len(realish):
+                drop = realish[np.argmin(np.abs(vals[realish]))]
+                counted = np.delete(vals, drop)
+        state.n_unstable = (int(np.sum(counted.real > tol)),
+                            state.n_unstable[0])
+        state.n_imag = (int(np.sum((np.abs(counted.imag) > tol)
+                                   & (counted.real > tol))), state.n_imag[0])
         self._maybe_raise_nev(state)
 
     def _maybe_raise_nev(self, state: ContState):

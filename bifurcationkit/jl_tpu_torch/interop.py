@@ -166,3 +166,35 @@ def unfolding_to_numpy(nf: Dict[str, Any]) -> Dict[str, Any]:
     and arrays as numpy arrays, 0-d ones as Python numbers, the nested
     `ns1`/`ns2` dicts likewise."""
     return {k: _scalar_or_array(v) for k, v in nf.items()}
+
+
+def _tensor_of(v, device, dtype):
+    arr = np.asarray(v)
+    if np.iscomplexobj(arr):
+        return torch.tensor(arr, dtype=torch.complex128, device=device)
+    return torch.tensor(arr, dtype=dtype, device=device)
+
+
+def po_ma_point_from_numpy(Y, params: Dict[str, Any], device,
+                           dtype: torch.dtype = DEFAULT_DTYPE):
+    """A point of a periodic-orbit minimally augmented curve handed over as
+    numpy, as the port's (Y, params): Y = (X, p1[, theta]); the borders
+    `_a` and `_b` (complex for Neimark-Sacker: complex128 tensors), the
+    collocation data `_mesh`, `_uref` and `_phi`, and the vector field's
+    parameters under `_inner` as 0-d tensors."""
+    dev = torch.device(device)
+    par = {k: _tensor_of(v, dev, dtype) for k, v in params.items()
+           if k != "_inner"}
+    par["_inner"] = {k: _tensor_of(v, dev, dtype)
+                     for k, v in params["_inner"].items()}
+    return _tensor_of(Y, dev, dtype), par
+
+
+def po_ma_point_to_numpy(Y, params: Dict[str, Any]):
+    """The inverse of `po_ma_point_from_numpy`, for either package's point:
+    (Y as a numpy array, params with numpy arrays and Python floats under
+    `_inner`)."""
+    par = {k: _to_numpy(v) for k, v in params.items() if k != "_inner"}
+    par["_inner"] = {k: float(_to_numpy(v))
+                     for k, v in params["_inner"].items()}
+    return _to_numpy(Y), par

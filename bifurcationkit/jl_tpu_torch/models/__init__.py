@@ -1,6 +1,7 @@
-from .equilibria import (bogdanov_takens_2d, brusselator_1d, carrier,
-                         cgl2d, chan, chan_spectral, co_oxidation,
-                         fold_hopf_interaction_2d, hopf_normal_2d, lorenz84,
-                         neumann_laplacian_dia, pitchfork_1d, stuart_landau,
-                         transcritical_1d, tsodyks_markram)
+from .equilibria import (bogdanov_takens_2d, brusselator_1d, bvam_1d,
+                         carrier, cgl2d, chan, chan_spectral, co_oxidation,
+                         fold_hopf_interaction_2d, freire, hopf_normal_2d,
+                         lorenz84, lure, neumann_laplacian_dia,
+                         neumann_laplacian_dia_1d, pitchfork_1d,
+                         stuart_landau, transcritical_1d, tsodyks_markram)
 from .sh import mittelmann, swift_hohenberg_2d

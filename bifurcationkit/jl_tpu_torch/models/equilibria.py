@@ -4,10 +4,11 @@ fixtures): the Chan BVP (finite differences and Chebyshev collocation) and the
 Carrier BVP, the scalar transcritical and pitchfork normal forms, the
 planar Hopf normal form, the Stuart-Landau oscillator, the 1D
 Brusselator, the Lorenz-84 model, the 2D complex Ginzburg-Landau
-equation, the CO-oxidation and Tsodyks-Markram models, and the two PDE
+equation, the CO-oxidation and Tsodyks-Markram models, the Lur'e and
+Freire oscillators (the periodic-orbit codim-2 fixtures), the two PDE
 models with exact codim-2 geometry (`fold_hopf_interaction_2d`,
-`bogdanov_takens_2d`), whose J.v applies their Neumann Laplacian through
-the DIA kernel.
+`bogdanov_takens_2d`) and the BVAM period-doubling PDE (`bvam_1d`), whose
+J.v applies their Neumann Laplacian through the DIA kernel.
 
 The Stuart-Landau and cGL2d residuals and their closed-form J.v take a
 leading batch of states natively (`batched_F`), so a periodic orbit's M
@@ -771,3 +772,207 @@ def bogdanov_takens_2d(Nx: int = 40, Ny: int = 40,
                        _dct_precond(Nx, Ny, hx2, hy2, dev,
                                     torch.float32))
     return prob
+
+
+def lure(alpha: float = -1.0, beta: float = 1.0, device=None,
+         dtype: torch.dtype = DEFAULT_DTYPE):
+    """Lur'e system (ref test/periodic_orbits_function_sh4_and_collocation/
+    testLure.jl:9-16): x' = y, y' = z, z' = -alpha z - beta y - x + x^2.
+    Hopf at alpha beta = 1 (omega^2 = beta); the PO branch carries PD
+    points.  F, its closed-form J.v (`jac_op`), d2F and d3F take a leading
+    batch of states (..., 3); continued in `alpha`."""
+    dev = resolve_device(device)
+
+    def F(u, par):
+        x, y, z = u[..., 0], u[..., 1], u[..., 2]
+        return torch.stack([y, z, -par["alpha"] * z - par["beta"] * y - x
+                            + x * x], dim=-1)
+
+    def jac_op(u, par):
+        x = u[..., 0]
+
+        def op(v):
+            dx, dy, dz = v[..., 0], v[..., 1], v[..., 2]
+            return torch.stack(torch.broadcast_tensors(
+                dy, dz, -par["alpha"] * dz - par["beta"] * dy
+                + (2 * x - 1) * dx), dim=-1)
+
+        return op
+
+    def d2F(u, par, a, b):
+        ab = a[..., 0] * b[..., 0] + 0 * u[..., 0]
+        z = torch.zeros_like(ab)
+        return torch.stack([z, z, 2 * ab], dim=-1)
+
+    def d3F(u, par, a, b, c):
+        return torch.zeros_like(a * b * c * u)
+
+    return _batched(BifurcationProblem(
+        F, u0=torch.zeros(3, dtype=dtype, device=dev),
+        params=_params({"alpha": alpha, "beta": beta}, dtype, dev),
+        lens="alpha", jac_op=jac_op, d2F_user=d2F, d3F_user=d3F))
+
+
+def freire(nu: float = -0.9, beta: float = 0.5, gamma: float = -0.6,
+           a3: float = 0.328578, b3: float = 0.933578, r: float = 0.6,
+           device=None, dtype: torch.dtype = DEFAULT_DTYPE):
+    """Freire electronic oscillator (ref test/periodic_orbits_bp_po/
+    freire.jl:5-19): two branch points on the PO branch from the first
+    Hopf; the switched branch carries NS and PD points.  F, J.v, d2F and
+    d3F in closed form with a leading batch of states (..., 3); continued
+    in `nu`."""
+    dev = resolve_device(device)
+
+    def F(u, par):
+        x, y, z = u[..., 0], u[..., 1], u[..., 2]
+        d3 = (y - x) ** 3
+        be, b3_ = par["beta"], par["b3"]
+        return torch.stack([
+            (-(be + par["nu"]) * x + be * y - par["a3"] * x ** 3
+             + b3_ * d3) / par["r"],
+            be * x - (be + par["gamma"]) * y - z - b3_ * d3,
+            y], dim=-1)
+
+    def jac_op(u, par):
+        x, y = u[..., 0], u[..., 1]
+        c = 3 * par["b3"] * (y - x) ** 2
+        be = par["beta"]
+
+        def op(v):
+            dx, dy, dz = v[..., 0], v[..., 1], v[..., 2]
+            dd = c * (dy - dx)
+            return torch.stack(torch.broadcast_tensors(
+                (-(be + par["nu"]) * dx + be * dy
+                 - 3 * par["a3"] * x * x * dx + dd) / par["r"],
+                be * dx - (be + par["gamma"]) * dy - dz - dd,
+                dy), dim=-1)
+
+        return op
+
+    def d2F(u, par, a, b):
+        x, y = u[..., 0], u[..., 1]
+        da, db = a[..., 1] - a[..., 0], b[..., 1] - b[..., 0]
+        q = 6 * par["b3"] * (y - x) * da * db
+        return torch.stack(torch.broadcast_tensors(
+            (-6 * par["a3"] * x * a[..., 0] * b[..., 0] + q) / par["r"], -q,
+            torch.zeros_like(q)), dim=-1)
+
+    def d3F(u, par, a, b, c):
+        q = 6 * par["b3"] * ((a[..., 1] - a[..., 0]) * (b[..., 1] - b[..., 0])
+                             * (c[..., 1] - c[..., 0]))
+        x3 = a[..., 0] * b[..., 0] * c[..., 0]
+        q = q + 0 * u[..., 0]
+        return torch.stack(torch.broadcast_tensors(
+            (-6 * par["a3"] * x3 + q) / par["r"], -q, torch.zeros_like(q)),
+            dim=-1)
+
+    return _batched(BifurcationProblem(
+        F, u0=torch.zeros(3, dtype=dtype, device=dev),
+        params=_params({"nu": nu, "beta": beta, "gamma": gamma, "a3": a3,
+                        "b3": b3, "r": r}, dtype, dev),
+        lens="nu", jac_op=jac_op, d2F_user=d2F, d3F_user=d3F))
+
+
+def neumann_laplacian_dia_1d(N: int, h2: float, device=None,
+                             dtype: torch.dtype = DEFAULT_DTYPE):
+    """The 1D modified-corner Neumann Laplacian (edge replication, ref
+    examples/pd-1d.jl) as one `DIAMatrix` with offsets 0, +-1: the
+    replicated edge folded into the diagonal (-1/h^2 at each end)."""
+    from ..ops import DIAMatrix
+
+    i = np.arange(N)
+    diag = -(2.0 - (i == 0) - (i == N - 1)) / h2
+    data = np.stack([diag, (i < N - 1) / h2, (i > 0) / h2])
+    return DIAMatrix(torch.as_tensor(data, dtype=dtype,
+                                     device=resolve_device(device)),
+                     (0, 1, -1))
+
+
+def bvam_1d(N: int = 100, lx: float = 3 * np.pi / 2, D: float = 0.08,
+            C: float = -0.2, device=None, dtype: torch.dtype = DEFAULT_DTYPE,
+            spmv=None):
+    """Barrio-Varea-Aragon-Maini 1D reaction-diffusion (ref
+    examples/pd-1d.jl and Aragon et al., PRE 86 026201): Turing patterns
+    whose oscillations period-double, the reference's PD-of-periodic-orbits
+    PDE workload.  State (2, N) = (u, v); Neumann modified-corner
+    diffusion (D Lap u, Lap v); continued in C.
+
+    F is plain torch (and differentiable); it and J.v (`jac_op`) take a
+    leading batch of states (..., 2, N).  J.v applies the Laplacian as one
+    `DIAMatrix` (`neumann_laplacian_dia_1d`) through `spmv` (default
+    `ops.dia_spmv`, the kernel on the card), both fields of every state in
+    one batched launch, and scales the u rows by D afterwards: D is a
+    parameter of the codim-2 curves, never baked into the matrix.  The
+    dense jacobian (`jac`) is J.v on the identity, so it takes the kernel
+    too.  d2F and d3F are closed forms (the reaction terms are cubic)."""
+    dev = resolve_device(device)
+    spmv = spmv or dia_spmv
+    h2 = float((2 * lx / N) ** 2)
+    mats = {}
+
+    def lap_dia(w):
+        A = mats.get(w.dtype)
+        if A is None:
+            A = mats[w.dtype] = neumann_laplacian_dia_1d(N, h2, dev, w.dtype)
+        return spmv(A, w.reshape(-1, N).contiguous()).reshape(w.shape)
+
+    def lap(u):
+        up = torch.cat([u[..., :1], u, u[..., -1:]], dim=-1)
+        return (up[..., :-2] - 2 * u + up[..., 2:]) / h2
+
+    def F(z, par):
+        u, v = z[..., 0, :], z[..., 1, :]
+        eta, Cc = par["eta"], par["C"]
+        fu = eta * (u + par["a"] * v - Cc * u * v - u * v * v)
+        gv = eta * (par["H"] * u + par["b"] * v + Cc * u * v + u * v * v)
+        return torch.stack([par["D"] * lap(u) + fu, lap(v) + gv], dim=-2)
+
+    def jac_op(z, par):
+        u, v = z[..., 0, :], z[..., 1, :]
+        eta, Cc = par["eta"], par["C"]
+        fu_u = eta * (1 - Cc * v - v * v)
+        fu_v = eta * (par["a"] - Cc * u - 2 * u * v)
+        gv_u = eta * (par["H"] + Cc * v + v * v)
+        gv_v = eta * (par["b"] + Cc * u + 2 * u * v)
+
+        def op(w):
+            L = lap_dia(w)
+            du, dv = w[..., 0, :], w[..., 1, :]
+            return torch.stack([par["D"] * L[..., 0, :] + fu_u * du
+                                + fu_v * dv,
+                                L[..., 1, :] + gv_u * du + gv_v * dv],
+                               dim=-2)
+
+        return op
+
+    def jac(z, par):
+        n = 2 * N
+        eye = torch.eye(n, dtype=z.dtype, device=z.device).reshape(n, 2, N)
+        return jac_op(z, par)(eye).reshape(n, n).T
+
+    def d2F(z, par, a, b):
+        u, v = z[..., 0, :], z[..., 1, :]
+        eta = par["eta"]
+        ua, va, ub, vb = a[..., 0, :], a[..., 1, :], b[..., 0, :], b[..., 1, :]
+        mix = (par["C"] + 2 * v) * (ua * vb + va * ub) + 2 * u * va * vb
+        return torch.stack([-eta * mix, eta * mix], dim=-2)
+
+    def d3F(z, par, a, b, c):
+        ua, va, ub, vb = a[..., 0, :], a[..., 1, :], b[..., 0, :], b[..., 1, :]
+        uc, vc = c[..., 0, :], c[..., 1, :]
+        t = 2 * par["eta"] * (ua * vb * vc + va * ub * vc + va * vb * uc)
+        return torch.stack([-t, t], dim=-2)
+
+    X = np.linspace(-lx, lx, N)
+    u0 = np.cos(2 * X)
+    z0 = torch.as_tensor(np.stack([u0, u0]), dtype=dtype, device=dev)
+
+    def record(z, p, **k):
+        return {"param": p, "norm": torch.max(torch.abs(z)),
+                "n2": torch.linalg.vector_norm(z.reshape(-1))}
+
+    return _batched(BifurcationProblem(
+        F, u0=z0, params=_params({"eta": 1.0, "a": -1.0, "b": -1.5,
+                                  "H": 3.0, "D": D, "C": C}, dtype, dev),
+        lens="C", jac=jac, jac_op=jac_op, d2F_user=d2F, d3F_user=d3F,
+        record_from_solution=record))

@@ -96,7 +96,9 @@ class _FlatProblem:
         `form` in ONE `torch.func.vmap` call: a nested jvp of F costs about
         the same per call whatever its batch (on the CPU 10 ms for the
         2nd form to 400 ms for the 5th), so a normal form gathers the
-        forms it needs per stage.  Returns one flat result per tuple."""
+        forms it needs per stage.  A problem with `forms_rows(order, x,
+        params, rows)` evaluates all the real rows itself, in one call.
+        Returns one flat result per tuple."""
         rows, owner, weight = [], [], []
         for t, vs in enumerate(tuples):
             r, w = re_im_rows(vs)
@@ -108,9 +110,18 @@ class _FlatProblem:
             return ravel(form(self.x0, self.parbif,
                               *[self.unravel(d) for d in ds]))[0]
 
-        cols = [torch.stack(c).to(self.flat0.dtype) for c in zip(*rows)]
-        terms = (torch.func.vmap(one)(*cols) if len(rows) > 1
-                 else one(*[c[0] for c in cols])[None])
+        rows_fn = getattr(self.prob, "forms_rows", None)
+        if rows_fn is not None:
+            # a problem that evaluates its own forms on many directions at
+            # once (the Poincare return map's jets through the flow)
+            terms = rows_fn(len(rows[0]), self.flat0, self.parbif,
+                            [tuple(d.to(self.flat0.dtype) for d in r)
+                             for r in rows])
+        else:
+            cols = [torch.stack(c).to(self.flat0.dtype)
+                    for c in zip(*rows)]
+            terms = (torch.func.vmap(one)(*cols) if len(rows) > 1
+                     else one(*[c[0] for c in cols])[None])
         out = []
         for t, vs in enumerate(tuples):
             idx = [i for i, o in enumerate(owner) if o == t]
@@ -144,8 +155,18 @@ class _FlatProblem:
     def d5F(self, v1, v2, v3, v4, v5):
         return self._multilinear(self.prob.d5F, (v1, v2, v3, v4, v5))
 
+    def _param_fd(self, p):
+        """A problem's own parameter derivatives at the point, where it
+        brings them (`param_derivatives(params, p)`: the Poincare return
+        map, whose forward AD in p would run through the whole flow)."""
+        hook = getattr(self.prob, "param_derivatives", None)
+        return None if hook is None else hook(self.parbif, p)
+
     def dFdp_at(self, p):
         """Exact d/dp of the residual through the lens at x0."""
+        fd = self._param_fd(p)
+        if fd is not None:
+            return fd.dFdp(self.flat0)
         x0 = self.x0
 
         def f(pp):
@@ -156,6 +177,9 @@ class _FlatProblem:
         return jvp(f, (pt,), (torch.ones_like(pt),))[1]
 
     def d2Fdp2_at(self, p):
+        fd = self._param_fd(p)
+        if fd is not None:
+            return fd.d2Fdp2(self.flat0)
         pt = self._p(p)
         return jvp(self.dFdp_at, (pt,), (torch.ones_like(pt),))[1]
 
@@ -167,6 +191,9 @@ class _FlatProblem:
         if v.is_complex():
             return torch.complex(self.dFdp_dir(v.real, p),
                                  self.dFdp_dir(v.imag, p))
+        fd = self._param_fd(p)
+        if fd is not None:
+            return fd.dFdp_dir(self.flat0, v.to(self.flat0.dtype))
         x0, vv = self.x0, self._as_state(v)
 
         def jv(pp):
@@ -747,9 +774,11 @@ def get_normal_form(br, ind_bif: int, prob=None, verbose: bool = False,
     gamma = getattr(br, "gamma", br)
     prob = prob or gamma.prob
     if hasattr(prob, "disc"):
-        raise NotImplementedError(
-            "normal forms on periodic-orbit branches (the Poincare return "
-            "map route) come with ROADMAP Queue A item 14, step 5")
+        # periodic-orbit branches: the Poincare return map's normal form
+        # (or Iooss with method="iooss")
+        from ..periodic.normal_forms import get_normal_form_po
+
+        return get_normal_form_po(gamma, ind_bif, verbose=verbose, **kwargs)
     br = gamma
     sp = br.specialpoint[ind_bif]
     if sp.type == "hopf":

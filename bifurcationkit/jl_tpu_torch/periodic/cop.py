@@ -24,8 +24,13 @@ Stage 1 factors the (Ntst, m n, m n) blocks with one batched
 period, the rhs, the parameter) with one batched `lu_solve`; the external
 system is one pivoted dense LU.  The mixed-precision solvers factor in a
 low dtype and refine against the f64 structured matvec in Python loops.
-`cop_bc_sigma` and `cop_solve_block`, whose only consumer is the PO
-codim-2 layer, come with ROADMAP Queue A item 14, step 5.
+
+The PO codim-2 layer adds two solvers: `cop_bc_sigma`, the minimally
+augmented test function on the collocation operator closed by a Floquet
+boundary condition (complex for Neimark-Sacker, solved in complex128
+directly; the JAX package's real 2K embedding is a TPU workaround), with
+the adjoint weights its gradient needs; and `cop_solve_block`, the
+k-border Schur elimination over one shared COP factorization.
 """
 from __future__ import annotations
 
@@ -317,6 +322,35 @@ def cop_factor_solve(blocks: COPBlocks, F, rhs, rn=None):
                            dp), dp
 
 
+def cop_factor_solve_adjoint(blocks: COPBlocks, F, b):
+    """Solve J^T y = b with an (unbordered) `cop_factor` factorization:
+    the condensation's steps transposed, in reverse order, on the same
+    LU factors (no new factorization).  b over the unknowns
+    [nodes (Ntst*m+1)*n, T]; y over the rows [collocation (Ntst*m*n),
+    periodicity (n), phase (1)]."""
+    n, m, Ntst = blocks.n, blocks.m, blocks.Ntst
+    H, k = F["H"], F["k"]
+    bn = b[:-1].reshape(Ntst * m + 1, n)
+    # node assembly x = [du_0, G - H du_j - k dT (local nodes), dT]
+    gG = bn[1:].reshape(Ntst, m * n)
+    gdu = torch.cat([bn[:1] - torch.einsum("jrn,jr->jn", H[:1], gG[:1]),
+                     -torch.einsum("jrn,jr->jn", H[1:], gG[1:]),
+                     torch.zeros_like(bn[:1])])
+    gdT = b[-1] - torch.sum(k * gG)
+    # the external solve
+    LU, piv = F["A_fac"]
+    z = torch.linalg.lu_solve(LU, piv, torch.cat(
+        [gdu.reshape(-1), gdT.reshape(1)])[:, None], adjoint=True)[:, 0]
+    # the external rhs [G_j's last n, r_per, r_phase - <phiI, G>]
+    z_c, z_per, z_ph = (z[:Ntst * n].reshape(Ntst, n),
+                        z[Ntst * n:(Ntst + 1) * n], z[-1])
+    gG = gG - z_ph * blocks.phiI + torch.cat(
+        [torch.zeros_like(gG[:, :-n]), z_c], dim=1)
+    # G = Aint^-1 rc
+    yc = torch.linalg.lu_solve(*F["fac"], gG[..., None], adjoint=True)
+    return torch.cat([yc.reshape(-1), z_per, z_ph.reshape(1)])
+
+
 def cop_solve_mixed(blocks: COPBlocks, rhs, low_dtype=torch.float32,
                     refinements: int = 3, rtol: float = 1e-10,
                     atol: float = 1e-13):
@@ -436,3 +470,140 @@ class COPBLS:
         dX, dp = cop_solve_bordered(J, R_flat, n, dR_flat, dzu_flat, dzp,
                                     xi_u=xi_u, xi_p=xi_p, dot_scale=scale)
         return unravel_state(dX), dp, True, 1
+
+
+# ---------------------------------------------------------------------------
+# the PO codim-2 solvers
+# ---------------------------------------------------------------------------
+
+
+def cop_bc_sigma(blocks: COPBlocks, a_res, b_unk, s_re, s_im=0.0,
+                 adjoint: bool = False):
+    """Minimally augmented test function on the discretized variational
+    operator (the matrix-free PO codim-2 core, ref MinAugPD.jl:35-257 /
+    MinAugNS.jl:36-236, which formulate sigma on the full collocation
+    problem, not on the dense monodromy): solve
+
+        [ A_bc   a ] [v]   [0]
+        [ b^H    0 ] [sig] [1]
+
+    where A_bc is the collocation linearization (the interior blocks Aint
+    and B0, no period column) closed by the Floquet boundary condition
+    du_Ntst = s du_0, s = s_re + i s_im: singular exactly when s is a
+    Floquet multiplier (s = -1: period doubling; s = e^{i theta}:
+    Neimark-Sacker).
+
+    Stage 1 stays real (the blocks are real; a complex border column rides
+    as its real and imaginary parts); the external system on
+    [du_0..du_Ntst, sig] is solved in complex128 when s or a border is
+    complex, else in the blocks' dtype.  It is assembled out of place, so
+    `torch.func` differentiates through the whole solve.
+
+    a_res: border column over the rows [collocation (Ntst*m*n), boundary
+    (n)]; b_unk: border row over the node unknowns ((Ntst*m+1)*n).
+    Returns (sig_re, sig_im, v_re, v_im) with v over the nodes; with
+    `adjoint=True` also (Wc, Wb), the weights of the linear functional
+    r -> sig(r) that the solve with right-hand side [r; 0] would give on
+    the collocation rows ((Ntst, m, n)) and the boundary rows ((n,)):
+    d sig = -(Wc . dA_c v + Wb . dA_b v) for a change dA of A_bc."""
+    n, m, Ntst = blocks.n, blocks.m, blocks.Ntst
+    rdt = blocks.Aint.dtype
+    dev = blocks.Aint.device
+    from ..codim2.minaug import _is_complex
+
+    real_case = (not isinstance(s_im, torch.Tensor) and float(s_im) == 0.0
+                 and not _is_complex(a_res) and not _is_complex(b_unk))
+    dt = rdt if real_case else (torch.complex128 if rdt == torch.float64
+                                else torch.complex64)
+    nc = Ntst * m * n
+    a_c = a_res[:nc].reshape(Ntst, m * n)
+    a_b = a_res[nc:]
+
+    fac = dense_factor(blocks.Aint)
+    cols = [blocks.B0, torch.real(a_c).to(rdt)[..., None]]
+    if not real_case:
+        cols.append(torch.imag(a_c).to(rdt)[..., None] if _is_complex(a_c)
+                    else torch.zeros_like(cols[-1]))
+    sol = torch.linalg.lu_solve(*fac, torch.cat(cols, dim=-1))
+    H = sol[..., :n]
+    ka = sol[..., n] if real_case else torch.complex(sol[..., n],
+                                                     sol[..., n + 1])
+    S = -H[:, -n:, :]
+    t = -ka[:, -n:]
+
+    # the border row b^H v over the local unknowns
+    # (du_loc_j = -H_j du_j - ka_j sig); the right-boundary weights ride
+    # the external path (see cop_solve_bordered)
+    w_nodes = torch.conj(b_unk).to(dt).reshape(Ntst * m + 1, n)
+    w0 = w_nodes[::m]
+    wI = torch.cat([w_nodes[1:].reshape(Ntst, m * n)[:, :-n],
+                    torch.zeros((Ntst, n), dtype=dt, device=dev)], dim=1)
+    Hd = H.to(dt)
+    c_du = w0 - torch.cat([torch.einsum("jr,jrn->jn", wI, Hd),
+                           torch.zeros((1, n), dtype=dt, device=dev)])
+    c_sig = -torch.sum(wI * ka)
+
+    # the external system on y = [du_0..du_Ntst, sig], K unknowns
+    K = (Ntst + 1) * n + 1
+    eye = torch.eye(n, dtype=dt, device=dev)
+    zc = torch.zeros((Ntst * n, n), dtype=dt, device=dev)
+    coupling = (torch.cat([torch.block_diag(*(-S.to(dt))), zc], dim=1)
+                + torch.cat([zc, torch.eye(Ntst * n, dtype=dt, device=dev)],
+                            dim=1))
+    s = (torch.as_tensor(s_re, device=dev).to(dt) if real_case
+         else torch.complex(torch.as_tensor(s_re, dtype=rdt, device=dev),
+                            torch.as_tensor(s_im, dtype=rdt, device=dev)))
+    bound = torch.cat([-s * eye, torch.zeros((n, (Ntst - 1) * n), dtype=dt,
+                                             device=dev), eye,
+                       a_b.to(dt)[:, None]], dim=1)
+    Mx = torch.cat([
+        torch.cat([coupling, -t.reshape(-1, 1).to(dt)], dim=1),
+        bound,
+        torch.cat([c_du.reshape(1, -1), c_sig.reshape(1, 1)], dim=1)])
+    e = torch.zeros((K,), dtype=dt, device=dev)
+    e = torch.cat([e[:-1], torch.ones((1,), dtype=dt, device=dev)])
+    # one factorization of the external matrix for sigma and, with
+    # `adjoint`, for z = Mx^-T e (Mx^T z = e is conj(z) = Mx^-H e, e real)
+    Mx_fac = torch.linalg.lu_factor(Mx)
+    y = torch.linalg.lu_solve(*Mx_fac, e[:, None])[:, 0]
+    du = y[:-1].reshape(Ntst + 1, n)
+    sig = y[-1]
+    vloc = -torch.einsum("jrn,jn->jr", Hd, du[:Ntst]) - ka * sig
+    v = torch.cat([du[0], vloc.reshape(-1)[:-n], du[-1]])
+    out = (torch.real(sig), torch.imag(sig) if not real_case
+           else torch.zeros_like(sig), torch.real(v),
+           torch.imag(v) if not real_case else torch.zeros_like(v))
+    if not adjoint:
+        return out
+    # sig(r) = z^T b_ext(r) with z = Mx^-T e; the collocation part
+    # sum_j c_j . Aint_j^-1 r_j turns into the weights Aint_j^-T c_j
+    z = torch.conj_physical(torch.linalg.lu_solve(
+        *Mx_fac, e[:, None], adjoint=True)[:, 0])
+    zc_, zb, zK = z[:Ntst * n].reshape(Ntst, n), z[Ntst * n:-1], z[-1]
+    c = torch.cat([torch.zeros((Ntst, (m - 1) * n), dtype=dt, device=dev),
+                   zc_], dim=1) - zK * wI
+    if real_case:
+        Wc = torch.linalg.lu_solve(*fac, c[..., None], adjoint=True)[..., 0]
+    else:
+        W2 = torch.linalg.lu_solve(*fac, torch.stack(
+            [c.real, c.imag], dim=-1).to(rdt), adjoint=True)
+        Wc = torch.complex(W2[..., 0], W2[..., 1])
+    return out + (Wc.reshape(Ntst, m, n), zb)
+
+
+def cop_solve_block(blocks: COPBlocks, R, C, D, E, s):
+    """k-border block solve over the COP inner solver (the explicit
+    multi-border elimination of ref solve_bls_block,
+    src/LinearBorderSolver.jl:173-206):
+
+        [ J_PO  C ] [x]   [R]       J_PO = blocks ((N+1) square),
+        [ D     E ] [y] = [s]       C: (N+1, k), D: (k, N+1), E: (k, k).
+
+    One COP factorization serves x1 = J\\R and X2 = J\\C (the k columns);
+    then the Schur complement E - D X2 gives y and x = x1 - X2 y."""
+    F = cop_factor(blocks)
+    x1, _ = cop_factor_solve(blocks, F, R)
+    X2 = torch.stack([cop_factor_solve(blocks, F, C[:, i])[0]
+                      for i in range(C.shape[1])], dim=1)
+    y = torch.linalg.solve(E - D @ X2, s - D @ x1)
+    return x1 - X2 @ y, y

@@ -36,9 +36,10 @@ from .trapezoid import Trapeze
 
 
 def _flat_vector_field(prob_vf):
-    """The vector field on raveled states: F, `jac_op`, d2F_user and
-    d3F_user of a structured state (e.g. cGL2d's (2, Nx, Ny)) reshaped
-    once here.  A batched F (and its J.v) stays batched."""
+    """The vector field on raveled states: F, `jac_op`, `jac`, d2F_user
+    and d3F_user of a structured state (e.g. cGL2d's (2, Nx, Ny))
+    reshaped once here.  A batched F (and its J.v and forms) stays
+    batched."""
     shape = tuple(prob_vf.u0.shape)
     flat0 = prob_vf.u0.reshape(-1)
     n = flat0.shape[0]
@@ -64,12 +65,17 @@ def _flat_vector_field(prob_vf):
             return jv
 
         kw["jac_op"] = jac_op_flat
+    def flat_out(out):
+        return out.reshape(out.shape[:out.dim() - len(shape)] + (n,))
+
+    if base.jac is not None:
+        kw["jac"] = lambda x, par: base.jac(unflat(x), par)
     if base.d2F_user is not None:
-        kw["d2F_user"] = lambda x, par, d1, d2: base.d2F_user(
-            unflat(x), par, unflat(d1), unflat(d2)).reshape(-1)
+        kw["d2F_user"] = lambda x, par, d1, d2: flat_out(base.d2F_user(
+            unflat(x), par, unflat(d1), unflat(d2)))
     if base.d3F_user is not None:
-        kw["d3F_user"] = lambda x, par, d1, d2, d3: base.d3F_user(
-            unflat(x), par, unflat(d1), unflat(d2), unflat(d3)).reshape(-1)
+        kw["d3F_user"] = lambda x, par, d1, d2, d3: flat_out(base.d3F_user(
+            unflat(x), par, unflat(d1), unflat(d2), unflat(d3)))
     flat = base.re_make(**kw)
     if getattr(base, "batched_F", False):
         object.__setattr__(flat, "batched_F", True)

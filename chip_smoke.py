@@ -132,6 +132,25 @@ Phases, one line each (a failing phase raises and the script exits non-zero):
       the ZH event, its matrix-free form (G200 = 2/32, G110 = 1/32,
       G011 = 0), `switch_codim2` to the Hopf curve p1 = -a^2 at
       omega = 1, the form through the plain version and on the CPU;
+   l. `po_bvam`: the BVAM period-doubling PDE of examples/pd_1d.py at its
+      N = 100 (f64, its Neumann Laplacian one DIAMatrix through
+      dia_spmv, both fields in one launch): Newton, the equilibrium
+      branch in C (Hopf within 5e-3 of -0.867), the collocation PO branch
+      (Collocation(30, 4), 24,201 unknowns, COP, FloquetColl) with >= 2
+      PD points (the first within 2e-2 of -1.327; the dense monodromy's
+      multiplier within 1e-2 of -1), `period_doubling_iooss` there (dense
+      collocation operators; its peak memory), `pd_branch_switch` onto
+      the period-2 branch (48,201 unknowns, 4 steps: halves differ by
+      > 0.1, period within 0.2 of 2T) and the functional PD curve in D
+      (24,202 unknowns, 3 steps: D moved by > 5e-4, FloquetColl's
+      multiplier within 5e-2 of -1 at the last point), with seconds per
+      part, Newton iterations and dia_spmv launches by rows (sh_jv none);
+      one PD-curve step under torch.profiler (`po_bvam_breakdown`); the
+      sigma gradient at the curve's first point against torch.func
+      through the plain jacobian (1e-8, no launch under autodiff), the
+      model's J.v through the kernel against the plain version (1e-12)
+      and the Iooss form at the same PD recomputed with every J.v through
+      the plain version (a and b3 to 1e-8);
 5. check: the flagship's last point is a finite root of F, a 60x40 SH
    branch and a 32-site Brusselator branch on the card match the same
    branches on the CPU, the matrix-free normal form at the 60x40
@@ -142,7 +161,16 @@ Phases, one line each (a failing phase raises and the script exits non-zero):
    ZH form and its switched fold curve, the CO model's BT and cusp forms
    and l2, the BT model's switched Hopf curve, the two-oscillator model's
    other Hopf curve, the quintic Bautin unfolding), coefficients to 1e-8;
-   the two PDE phases and this one take at most 150 s together;
+   the two PDE phases and this one take at most 150 s together; then
+   the small periodic-orbit codim-2 family (`check_small_po_codim2`) on
+   the card against the CPU, curves to 1e-9 and coefficients to 1e-8:
+   Lur'e's PD curve with the codim-3 monitor (gpd, cusp, R2), its PD
+   switch on Collocation, Trapeze and Shooting and its return-map and
+   Iooss forms; Freire's BP switch with NS and PD, the NS Iooss form and
+   a 3-step NS curve; `switch_codim2_po` from the constructed Bautin and
+   zero-Hopf models to their closed-form curves (1e-7, 1e-6) and from
+   Lorenz-84's ZH; the BVAM flow at N = 10 with its dense Iooss form;
+   po_bvam and this take at most 240 s together (printed);
 6. timing: each kernel, its plain version and its bound at the main
    paths' shapes: the wrapper's time (CUDA events over back-to-back
    calls), its host time per call (the host clock over calls with no
@@ -153,16 +181,17 @@ Phases, one line each (a failing phase raises and the script exits non-zero):
    profiler's time of a one-element `add_`); for SH J.v
    also through the operator the SH model's `jac_op` uses, for DIA SpMV
    also one cuSPARSE CSR matrix-vector product through PyTorch, timed as
-   a yardstick only (SpMM at the codim-2 PDE shapes, K = 2 and 3).  At K = 1 on the flagship grid and at the
-   Brusselator path's shape the host time is split into its parts: the
-   output's allocation, the ctypes call (with the CUDA launch in it), and
-   the stream and device queries around it.
+   a yardstick only (SpMM at the codim-2 PDE shapes, K = 2 and 3, and at
+   the BVAM path's, n = 100 with 240 and 400 rows).  At K = 1 on the
+   flagship grid and at the Brusselator path's shape the host time is
+   split into its parts: the output's allocation, the ctypes call (with
+   the CUDA launch in it), and the stream and device queries around it.
 
 Then each part's seconds on the host clock (`wall`), the nvidia-smi line,
 one JSON line listing the kernels (po_cgl and po_bruss launch neither:
-their count is 0 in each kernel's `launches_by_phase`; po_bruss_shooting
-and the codim-2 PDE phases launch dia_spmv only), and the final JSON
-line.  Full details
+their count is 0 in each kernel's `launches_by_phase`; po_bruss_shooting,
+the codim-2 PDE phases and po_bvam launch dia_spmv only), and the final
+JSON line.  Full details
 go to chiprun_out/chip_smoke.json.
 """
 import dataclasses
@@ -337,9 +366,18 @@ PATH_OFFSETS = (-BRUSS_SITES, -1, 0, 1, BRUSS_SITES)
 # model's on its 3 (n = 1,024, offsets 0, +-1, +-32), one state or two
 PDE_DIA = [(40 * 40, (0, 1, -1, 40, -40), 2),
            (32 * 32, (0, 1, -1, 32, -32), 3)]
+# the BVAM path's (po_bvam, N = 100): one Laplacian on the 2 fields of
+# each state; 400 rows (J.v on the identity's 200 columns: the per-node
+# jacobians of COP, FloquetColl, the Iooss operators and the dense
+# equilibrium jacobian), 240 (J.v at the 120 Gauss states of the sigma
+# gradient), 242 (at the 121 nodes of the Iooss form)
+BVAM_OFFSETS = (0, 1, -1)
+BVAM_DIA_ROWS = (240, 242, 400)
+BVAM_DIA = [(100, BVAM_OFFSETS, K) for K in BVAM_DIA_ROWS]
 DIA_CASES = [(2 * BRUSS_SITES, PATH_OFFSETS, 1),
              (2 * BRUSS_SITES, PATH_OFFSETS, 8),
              *PDE_DIA, *[(n, off, 2 * K) for n, off, K in PDE_DIA],
+             *BVAM_DIA,
              (1000, (-37, -1, 0, 2, 999), 3),
              (20000, (-5000, -1, 0, 1, 5000), 1),
              (1 << 20, (-1024, -1, 0, 1, 1024), 1),
@@ -375,7 +413,7 @@ def compare_dia():
                 raise AssertionError(f"dia_spmv disagrees with its plain "
                                      f"version: {rel} >= {TOL[dtype]}")
             if n == 2 * BRUSS_SITES or (n, offsets) in [
-                    c[:2] for c in PDE_DIA]:
+                    c[:2] for c in PDE_DIA + BVAM_DIA]:
                 worst_path = max(worst_path, abs_err)
     return max(worst_path, compare_dia_replaced())
 
@@ -2149,6 +2187,551 @@ def check_small_codim2_family():
 
 
 # ---------------------------------------------------------------------------
+# 4l. po_bvam: periodic-orbit codim-2 on the BVAM period-doubling PDE
+# ---------------------------------------------------------------------------
+
+# examples/pd_1d.py at its default N = 100 (state (2, N)): Collocation
+# (Ntst=30, m=4), 24,201 PO unknowns; the period-2 branch on
+# Collocation(60, 4), 48,201; the functional PD curve in D, 24,202
+BVAM_N = 100
+BVAM_HOPF, BVAM_HOPF_TOL = -0.867, 5e-3     # test_pd1d.py's windows
+BVAM_PD, BVAM_PD_TOL = -1.327, 2e-2
+BVAM_SMALL_N = 10           # card against CPU, dense Iooss on both
+BVAM_SWITCH_STEPS = 4
+BVAM_CURVE_STEPS = 3
+BVAM_BUDGET_S = 240         # po_bvam and check_small_po_codim2 together
+SIGMA_GRAD_RTOL = 1e-8      # closed form against torch.func (plain route)
+PO_RTOL = 1e-8              # coefficients card against CPU
+PO_CURVE_TOL = 1e-9         # curves card against CPU
+
+
+def bvam_model(device, N=BVAM_N, **kw):
+    return models.bvam_1d(N=N, device=device, **kw)
+
+
+def bvam_leg(device, N=BVAM_N, iooss=True, switch_steps=BVAM_SWITCH_STEPS,
+             curve_steps=BVAM_CURVE_STEPS, stamps=None, spmv=None):
+    """The flow of test_pd1d.py at N: Newton on the Turing pattern, the
+    equilibrium branch in C (nev = 21, Hopf near C = -0.867),
+    `continuation_hopf_po(use_cop=True)` with FloquetColl to the PD
+    cascade, `period_doubling_iooss` at the first PD (the dense
+    collocation operators), `pd_branch_switch` (4 steps on the doubled
+    mesh) and the functional PD curve in D (3 steps from D = 0.08)."""
+    kw = {} if spmv is None else {"spmv": spmv}
+    prob = bvam_model(device, N, **kw)
+    parts = _Parts(device)
+    sol = bk.newton(prob, bk.NewtonPar(tol=1e-9, max_iterations=100))
+    if not bool(sol.converged):
+        raise AssertionError("bvam: Newton on the Turing pattern failed")
+    parts("newton_s")
+    cp = bk.ContinuationPar(ds=-0.001, dsmax=0.051, dsmin=1e-5, p_min=-1.8,
+                            p_max=0.0, max_steps=40, detect_bifurcation=3,
+                            nev=21, n_inversion=10,
+                            newton_options=bk.NewtonPar(tol=1e-9,
+                                                        max_iterations=25))
+    br = bk.continuation(prob.re_make(u0=sol.u), bk.PALC(), cp)
+    parts("equilibria_s")
+    ih = next(i for i, sp in enumerate(br.specialpoint) if sp.type == "hopf")
+    cpo = bk.ContinuationPar(ds=0.01, dsmax=0.015, dsmin=1e-4, p_min=-1.8,
+                             p_max=0.0, max_steps=40, detect_bifurcation=3,
+                             n_inversion=6, tol_stability=1e-4,
+                             newton_options=bk.NewtonPar(
+                                 tol=1e-8, max_iterations=20,
+                                 eigsolver=bk.FloquetColl()))
+    brpo = bk.continuation_hopf_po(br, ih, cpo, bk.Collocation(Ntst=30, m=4),
+                                   use_cop=True)
+    parts("po_branch_s")
+    pds = [i for i, sp in enumerate(brpo.gamma.specialpoint)
+           if sp.type == "pd"]
+    if not pds:
+        raise AssertionError(f"bvam: no PD on the PO branch: "
+                             f"{[sp.type for sp in brpo.gamma.specialpoint]}")
+    ipd = pds[0]
+    out = dict(prob=prob, sol=sol, br=br, ih=ih, brpo=brpo, pds=pds,
+               ipd=ipd)
+    if iooss:
+        if torch.device(device).type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        out["iooss"] = bk.period_doubling_iooss(brpo, ipd)
+        parts("iooss_s")
+        if torch.device(device).type == "cuda":
+            out["iooss_peak_bytes"] = torch.cuda.max_memory_allocated()
+    cpd = brpo.gamma.contparams.replace(
+        ds=-0.005, max_steps=switch_steps, detect_bifurcation=0,
+        save_sol_every_step=1,
+        newton_options=bk.NewtonPar(tol=1e-9, max_iterations=40,
+                                    linesearch=True))
+    out["br2"] = bk.pd_branch_switch(brpo, ipd, cpd, ampfactor=0.02,
+                                     use_cop=True)
+    parts("pd_switch_s")
+    cp2 = bk.ContinuationPar(
+        ds=2e-3, dsmax=5e-3, dsmin=1e-7, p_min=0.05, p_max=0.12,
+        max_steps=curve_steps, detect_bifurcation=0, detect_event=0,
+        save_sol_every_step=1,
+        newton_options=bk.NewtonPar(tol=1e-7, max_iterations=30))
+    kwc = {} if stamps is None else {"finalise_solution": stamps}
+    out["brc"] = bk.continuation_pd(brpo, ipd, "D", cp2, detect_codim3=0,
+                                    **kwc)
+    parts("pd_curve_s")
+    out["parts"] = parts.s
+    return out
+
+
+def _bvam_pd_curve_floquet(brpo, brc):
+    """FloquetColl at the PD curve's last point, on the inner orbit."""
+    po_prob = brpo.gamma.prob
+    maprob = brc.gamma.prob
+    sol = brc.gamma.sol[-1]
+    Y = torch.as_tensor(sol["x"])
+    nX = po_prob.u0.shape[0]
+    par = maprob.set_lens_param(maprob.params, float(sol["p"]))
+    po_par = {k: v for k, v in par.items() if k not in ("_a", "_b")}
+    po_par["_inner"] = bk.as_lens(po_prob.prob_vf.lens).set(
+        par["_inner"], float(Y[nX]))
+    blocks = bk.collocation_block_jacobian(po_prob.disc, po_prob.prob_vf,
+                                           Y[:nX], po_par)
+    expo, _, _, _ = bk.FloquetColl()(blocks, 4)
+    return np.exp(expo.cpu().numpy())
+
+
+def _bvam_checks(leg):
+    """test_pd1d.py's checks on a BVAM leg, as numbers and one verdict."""
+    br, brpo, ipd = leg["br"], leg["brpo"], leg["ipd"]
+    sp = brpo.gamma.specialpoint[ipd]
+    po_prob = brpo.gamma.prob
+    hopf = float(br.specialpoint[leg["ih"]].param)
+    M = po_prob.disc.monodromy(po_prob.prob_vf, torch.as_tensor(sp.x),
+                               po_prob.set_lens_param(po_prob.params,
+                                                      sp.param))
+    mult = np.linalg.eigvals(M.cpu().numpy())
+    orb = bk.get_periodic_orbit(leg["br2"], 0)
+    half = orb["u"].shape[0] // 2
+    tab = leg["brc"].gamma._table()
+    mu_curve = _bvam_pd_curve_floquet(brpo, leg["brc"])
+    c = dict(hopf=hopf, pd=[float(brpo.gamma.specialpoint[i].param)
+                            for i in leg["pds"]],
+             pd_multiplier_gap=float(np.min(np.abs(mult + 1.0))),
+             halves_gap=float(np.abs(orb["u"][:half]
+                                     - orb["u"][half:2 * half]).max()),
+             period2=orb["period"], period1=float(sp.x[-1]),
+             curve_points=len(tab["param"]),
+             curve_D_span=float(np.ptp(tab["param"])),
+             curve_p1_jump=float(np.max(np.abs(np.diff(tab["p1"])))),
+             curve_multiplier_gap=float(np.min(np.abs(mu_curve + 1.0))))
+    ok = (len(c["pd"]) >= 2 and c["pd_multiplier_gap"] < 1e-2
+          and c["halves_gap"] > 0.1
+          and abs(c["period2"] - 2 * c["period1"]) < 0.2
+          and c["curve_points"] >= 3 and c["curve_D_span"] > 5e-4
+          and c["curve_p1_jump"] < 0.1 and c["curve_multiplier_gap"] < 5e-2)
+    return c, ok
+
+
+def _trel(a, b):
+    """max |a - b| over max |b|, for tensors."""
+    return float((a - b).abs().max() / b.abs().max())
+
+
+class SpmvBatches:
+    """`spmv` for a model: `dia_spmv` (the kernel, which counts its own
+    launches) recording each product's batch of rows."""
+
+    def __init__(self):
+        self.by_rows = {}
+
+    def __call__(self, A, v):
+        k = int(v.shape[0]) if v.dim() == 2 else 1
+        self.by_rows[k] = self.by_rows.get(k, 0) + 1
+        return dia_spmv(A, v)
+
+
+def po_bvam(card):
+    """The BVAM period-doubling PDE at N = 100 on the card (f64, every J.v
+    through dia_spmv): test_pd1d.py's flow and checks at full width, the
+    Iooss form's peak memory, the PD curve's sigma gradient against
+    torch.func through the plain version, one profiled PD-curve step
+    (`po_bvam_breakdown`)."""
+    reset_launches()
+    batches = SpmvBatches()
+    stamps = StepStamps(profile_after=BVAM_CURVE_STEPS - 1)
+    t0 = time.perf_counter()
+    leg = bvam_leg("cuda", stamps=stamps, spmv=batches)
+    seconds = time.perf_counter() - t0
+    launches = dia_spmv.launches
+    by_rows = dict(sorted(batches.by_rows.items()))
+    sh_launches = sh_jv_mod.sh_jv.launches
+    checks, ok = _bvam_checks(leg)
+    brpo, brc = leg["brpo"], leg["brc"]
+    iooss = leg["iooss"].nf
+    po_n = brpo.gamma.prob.u0.numel()
+    windows = (abs(checks["hopf"] - BVAM_HOPF) <= BVAM_HOPF_TOL
+               and abs(checks["pd"][0] - BVAM_PD) <= BVAM_PD_TOL)
+    phase("po_bvam", N=BVAM_N, po_unknowns=po_n,
+          period2_unknowns=leg["br2"].gamma.prob.u0.numel(),
+          curve_unknowns=brc.gamma.prob.u0.numel(), seconds=seconds,
+          parts=leg["parts"], special=[sp.type for sp in
+                                       brpo.gamma.specialpoint],
+          po_itnewton=np.asarray(brpo.gamma["itnewton"]).tolist(),
+          switch_itnewton=np.asarray(leg["br2"].gamma["itnewton"]).tolist(),
+          curve_itnewton=np.asarray(brc.gamma["itnewton"]).tolist(),
+          iooss_a=iooss["a"], iooss_b3=iooss["b3"],
+          iooss_peak_bytes=leg.get("iooss_peak_bytes"),
+          windows_ok=windows, dia_spmv_launches=launches,
+          dia_spmv_launches_by_rows=by_rows,
+          sh_jv_launches=sh_launches, card=repr(card), **checks)
+    if not (ok and windows):
+        raise AssertionError(f"po_bvam: checks fail: {checks}")
+    if launches <= 0 or sh_launches != 0:
+        raise AssertionError(f"po_bvam launched dia_spmv {launches} and "
+                             f"sh_jv {sh_launches} times")
+    _pde_breakdown("po_bvam_breakdown", stamps, BVAM_CURVE_STEPS)
+
+    # the sigma gradient at the curve's first point against torch.func
+    # through the plain jacobian of F; the model's J.v through the kernel
+    # against the plain version at the phase's batch shapes
+    maprob = brc.gamma.prob
+    Y, par = maprob.u0, maprob.params
+    n0 = dia_spmv.launches
+    J = maprob.jac(Y, par)
+    n1 = dia_spmv.launches
+    t1 = time.perf_counter()
+    ref = bk.periodic.codim2.po_sigma_autodiff(maprob, Y, par)
+    autodiff_s = time.perf_counter() - t1
+    autodiff_launches = dia_spmv.launches - n1
+    grad_gap = max(_trel(J.sig_X, ref[0]), _trel(J.sig_p1, ref[1]))
+    prob = leg["prob"]
+    dev, N = prob.u0.device, prob.u0.shape[-1]
+    plain = bvam_model(dev, N, spmv=dia_spmv_plain)
+    g = torch.Generator().manual_seed(6)
+    u = torch.randn((2, N), generator=g, dtype=torch.float64).to(dev)
+    jv_gap = 0.0
+    for k in sorted(batches.by_rows):
+        v = torch.randn((max(k // 2, 1), 2, N), generator=g,
+                        dtype=torch.float64).to(dev)
+        jv_gap = max(jv_gap, _trel(prob.jac_op(u, prob.params)(v),
+                                   plain.jac_op(u, plain.params)(v)))
+    # the Iooss form at the same PD point with every J.v through the
+    # plain version (a and b3 to PO_RTOL relative to max(|c|, 1))
+    sp = brpo.gamma.specialpoint[leg["ipd"]]
+    po_prob = brpo.gamma.prob
+    pf = po_prob.set_lens_param(po_prob.params, sp.param)
+    plain_vf, _ = bk.periodic.orbits._flat_vector_field(plain)
+    n2 = dia_spmv.launches
+    t2 = time.perf_counter()
+    ref_nf = bk.periodic.normal_forms._pd_iooss_core(
+        po_prob.disc, plain_vf, po_prob.n_vf, torch.as_tensor(sp.x),
+        pf["_inner"], pf["_mesh"])
+    iooss_plain_s = time.perf_counter() - t2
+    iooss_gap = max(abs(float(iooss[k]) - float(ref_nf[k]))
+                    / max(abs(float(ref_nf[k])), 1.0) for k in ("a", "b3"))
+    phase("po_bvam_check", sigma_grad_rel_gap=grad_gap,
+          sigma_grad_tol=SIGMA_GRAD_RTOL, autodiff_s=autodiff_s,
+          autodiff_dia_launches=autodiff_launches,
+          closed_form_dia_launches=n1 - n0, jac_op_rel_gap=jv_gap,
+          iooss_plain_a=float(ref_nf["a"]),
+          iooss_plain_b3=float(ref_nf["b3"]), iooss_rel_gap=iooss_gap,
+          iooss_tol=PO_RTOL, iooss_plain_s=iooss_plain_s,
+          iooss_plain_dia_launches=dia_spmv.launches - n2)
+    if not (grad_gap <= SIGMA_GRAD_RTOL and jv_gap <= 1e-12
+            and autodiff_launches == 0 and n1 > n0
+            and iooss_gap <= PO_RTOL and dia_spmv.launches == n2):
+        raise AssertionError(f"po_bvam: sigma gradient {grad_gap}, J.v "
+                             f"{jv_gap} or the Iooss form {iooss_gap} off")
+    return launches, by_rows
+
+
+def _analytic_models(dev):
+    """The constructed Bautin and zero-Hopf models of test_po_switch.py
+    (real arithmetic) with their start points."""
+    om, c1, l5, c2 = 1.3, 0.4, -2.0, 0.1
+    omz, a, b, cr, ci, dr, di = 1.5, 1.0, -1.0, 0.5, 0.3, -1.0, 0.2
+
+    def bautin(u, par):
+        x, y = u[0], u[1]
+        zz = x * x + y * y
+        return torch.stack([
+            par["p1"] * x - om * y + zz * (par["p2"] * x - c1 * y)
+            + zz * zz * (l5 * x - c2 * y),
+            par["p1"] * y + om * x + zz * (par["p2"] * y + c1 * x)
+            + zz * zz * (l5 * y + c2 * x)])
+
+    def zh(u, par):
+        x, p, q = u[0], u[1], u[2]
+        zz = p * p + q * q
+        return torch.stack([
+            par["p1"] + a * x * x + b * zz,
+            par["p2"] * p - omz * q + x * (cr * p - ci * q)
+            + zz * (dr * p - di * q),
+            par["p2"] * q + omz * p + x * (cr * q + ci * p)
+            + zz * (dr * q + di * p)])
+
+    def make(F, u0, **pars):
+        return bk.BifurcationProblem(
+            F, u0=torch.tensor(u0, dtype=torch.float64, device=dev),
+            params={k: torch.tensor(v, dtype=torch.float64, device=dev)
+                    for k, v in pars.items()}, lens="p1")
+
+    return (make(bautin, [0.0, 0.0], p1=-0.05, p2=-0.3), l5,
+            make(zh, [-0.3, 0.0, 0.0], p1=-0.09, p2=0.05))
+
+
+def _analytic_switch(prob, cp_kw, cp2_kw, kind, eps, steps):
+    cp = bk.ContinuationPar(newton_options=bk.NewtonPar(tol=1e-10),
+                            detect_bifurcation=3, nev=3, n_inversion=4,
+                            **cp_kw)
+    br = bk.continuation(prob, bk.PALC(), cp)
+    i = next(k for k, sp in enumerate(br.specialpoint) if sp.type == "hopf")
+    brh = bk.continuation_hopf(br, i, "p2", bk.ContinuationPar(
+        detect_bifurcation=0, detect_fold=False,
+        newton_options=bk.NewtonPar(tol=1e-10, max_iterations=30),
+        **cp2_kw), detect_codim2_bifurcation=2)
+    cand = [k for k, sp in enumerate(brh.gamma.specialpoint)
+            if sp.type in ("zh", "gh") and abs(sp.param) < 0.05]
+    cp3 = bk.ContinuationPar(
+        ds=0.002, dsmax=0.01 if kind == "gh" else 0.005, dsmin=1e-8,
+        p_min=0.0001, p_max=0.3, max_steps=steps, detect_bifurcation=0,
+        detect_event=0, newton_options=bk.NewtonPar(tol=1e-8,
+                                                    max_iterations=30))
+    return bk.switch_codim2_po(brh, cand[0], cp3,
+                               disc=bk.Collocation(Ntst=30, m=4), eps=eps,
+                               detect_codim3=0, as_type=kind)
+
+
+def _small_po_family(dev):
+    """The small PO codim-2 family on `dev`: curve tables (numpy) and
+    coefficients (numbers), for the card against the CPU."""
+    from bifurcationkit.jl_tpu_torch.periodic import codim2 as pc2
+
+    curves, coefs, secs = {}, {}, {}
+    t = time.perf_counter()
+    # Lur'e: the PO branch to its PD, the PD curve with the codim-3
+    # monitor, the PD switch on the three discretizations, the PRM form
+    prob = models.lure(alpha=1.2, beta=1.0, device=dev)
+    br = bk.continuation(prob, bk.PALC(tangent=bk.Bordered()),
+                         bk.ContinuationPar(
+                             ds=-0.01, dsmax=0.02, dsmin=1e-6, p_min=0.9,
+                             p_max=1.4, max_steps=120, detect_bifurcation=3,
+                             nev=3, n_inversion=6,
+                             newton_options=bk.NewtonPar(tol=1e-10)))
+    ih = next(i for i, s in enumerate(br.specialpoint) if s.type == "hopf")
+    br_po = bk.continuation_hopf_po(br, ih, bk.ContinuationPar(
+        ds=-0.01, dsmax=0.03, dsmin=1e-7, p_min=0.2, p_max=1.05,
+        max_steps=100, detect_bifurcation=3, nev=3, n_inversion=4,
+        max_bisection_steps=15, tol_stability=1e-4,
+        newton_options=bk.NewtonPar(tol=1e-9, max_iterations=25)),
+        disc=bk.Collocation(Ntst=25, m=4), delta_p=-0.01)
+    ipd = next(i for i, s in enumerate(br_po.gamma.specialpoint)
+               if s.type == "pd")
+    events = []
+    brpd = bk.continuation_pd(br_po, ipd, "beta", bk.ContinuationPar(
+        ds=0.02, dsmax=0.05, dsmin=1e-6, p_min=0.8, p_max=1.4, max_steps=3,
+        detect_bifurcation=0, detect_fold=False,
+        newton_options=bk.NewtonPar(tol=1e-9, max_iterations=15)),
+        detect_codim3=1, nf_flow_steps=60,
+        finalise_solution=lambda *a, state=None, **k: events.append(
+            state.event_values[0]))
+    curves["lure_pd_curve"] = brpd
+    coefs["lure_gpd_cusp_r2"] = np.asarray(events[-1], dtype=float)
+    nfp = bk.get_normal_form(br_po, ipd, flow_steps=60)
+    coefs["lure_prm_c"] = nfp.nf["c"]
+    coefs["lure_iooss_b3"] = bk.period_doubling_iooss(br_po, ipd).nf["b3"]
+    cp_sw = bk.ContinuationPar(ds=-0.01, dsmax=0.02, dsmin=1e-7, p_min=0.2,
+                               p_max=1.05, max_steps=2, detect_bifurcation=0,
+                               detect_fold=False,
+                               newton_options=bk.NewtonPar(
+                                   tol=1e-8, max_iterations=30,
+                                   linesearch=True))
+    sp = br_po.gamma.specialpoint[ipd]
+    curves["lure_pd_switch_coll"] = bk.pd_branch_switch(
+        br_po, ipd, cp_sw, ampfactor=0.05, delta_p=-0.005)
+    nodes, T1 = sp.x[:-1].reshape(-1, 3), float(sp.x[-1])
+    par_pd = prob.set_lens_param(prob.params, float(sp.param))
+    for name, disc, X0 in (
+            ("trapeze", bk.Trapeze(M=nodes.shape[0]), None),
+            ("shooting", bk.Shooting(M=3, steps_per_segment=40,
+                                     method="rk4"), None)):
+        if name == "trapeze":
+            X0 = disc.pack(nodes, T1)
+        else:
+            idx = [int(round(f * (nodes.shape[0] - 1)))
+                   for f in np.linspace(0, 1, 3, endpoint=False)]
+            X0 = disc.pack(nodes[idx], T1)
+        sol, _ = bk.newton_po(prob, disc, X0, params=par_pd,
+                              options=bk.NewtonPar(tol=1e-9,
+                                                   max_iterations=30))
+        brd = bk.continuation_po(prob, disc, sol.u, bk.ContinuationPar(
+            ds=-0.004, dsmax=0.006, dsmin=1e-8, p_min=0.2, p_max=1.05,
+            max_steps=4, detect_bifurcation=3, nev=3, n_inversion=4,
+            tol_stability=1e-3, newton_options=bk.NewtonPar(
+                tol=1e-8, max_iterations=30)), params=par_pd)
+        k = next(i for i, s in enumerate(brd.gamma.specialpoint)
+                 if s.type == "pd")
+        X2, _ = pc2.pd_doubled_guess(brd.gamma.prob,
+                                     brd.gamma.specialpoint[k], 0.05)
+        coefs[f"lure_pd_guess_{name}_norm"] = float(
+            torch.linalg.vector_norm(X2))
+        curves[f"lure_pd_switch_{name}"] = bk.pd_branch_switch(
+            brd, k, cp_sw, ampfactor=0.05, delta_p=-0.005)
+    secs["lure"] = time.perf_counter() - t
+
+    # Freire: the BP switch, NS and PD on the switched branch, the NS
+    # Iooss form, a 3-step NS curve
+    t = time.perf_counter()
+    fprob = models.freire(device=dev)
+    fbr = bk.continuation(fprob, bk.PALC(), bk.ContinuationPar(
+        ds=0.01, dsmax=0.05, dsmin=1e-6, p_min=-1.0, p_max=-0.55,
+        max_steps=200, detect_bifurcation=3, nev=3, n_inversion=8,
+        newton_options=bk.NewtonPar(tol=1e-10)))
+    fih = next(i for i, s in enumerate(fbr.specialpoint) if s.type == "hopf")
+    fpo = bk.continuation_hopf_po(fbr, fih, bk.ContinuationPar(
+        ds=-0.001, dsmax=0.01, dsmin=1e-8, p_min=-0.7, p_max=-0.4,
+        max_steps=20, detect_bifurcation=3, nev=4, n_inversion=6,
+        max_bisection_steps=15, tol_stability=1e-4,
+        newton_options=bk.NewtonPar(tol=1e-9, max_iterations=25)),
+        disc=bk.Collocation(Ntst=30, m=4), delta_p=0.001, use_cop=True)
+    ibp = next(i for i, s in enumerate(fpo.gamma.specialpoint)
+               if s.type == "bp" and abs(s.param + 0.587) < 2e-3)
+    fbr2 = bk.bp_po_branch_switch(fpo, ibp, bk.ContinuationPar(
+        ds=-0.001, dsmax=0.005, dsmin=1e-8, p_min=-0.7, p_max=-0.4,
+        max_steps=16, detect_bifurcation=3, nev=4, n_inversion=6,
+        tol_stability=1e-4, newton_options=bk.NewtonPar(
+            tol=1e-8, max_iterations=30)), ampfactor=0.01, delta_p=-0.001,
+        use_cop=True)
+    curves["freire_switched"] = fbr2
+    types = [s.type for s in fbr2.gamma.specialpoint]
+    if not ("ns" in types and "pd" in types):
+        raise AssertionError(f"freire: switched branch has {types}")
+    ins = types.index("ns")
+    nsf = bk.neimark_sacker_iooss(fbr2, ins)
+    coefs["freire_ns_iooss_a"], coefs["freire_ns_iooss_d"] = \
+        nsf.nf["a"], nsf.nf["d"]
+    curves["freire_ns_curve"] = bk.continuation_ns(
+        fbr2, ins, "beta", bk.ContinuationPar(
+            ds=1e-3, dsmax=3e-3, dsmin=1e-8, p_min=0.3, p_max=0.7,
+            max_steps=3, detect_bifurcation=0, detect_event=0,
+            newton_options=bk.NewtonPar(tol=1e-7, max_iterations=30)),
+        detect_codim3=0)
+    secs["freire"] = time.perf_counter() - t
+
+    # switch_codim2_po on the constructed models (closed-form curves)
+    t = time.perf_counter()
+    bprob, l5, zprob = _analytic_models(dev)
+    curves["gh_fold_po"] = _analytic_switch(
+        bprob, dict(ds=0.005, dsmax=0.01, dsmin=1e-7, p_min=-0.06,
+                    p_max=0.05, max_steps=60),
+        dict(ds=0.02, dsmax=0.04, dsmin=1e-7, p_min=-0.4, p_max=0.02,
+             max_steps=30), "gh", 0.07, 4)
+    curves["zh_ns"] = _analytic_switch(
+        zprob, dict(ds=0.005, dsmax=0.01, dsmin=1e-7, p_min=-0.1,
+                    p_max=-0.001, max_steps=100),
+        dict(ds=-0.005, dsmax=0.01, dsmin=1e-7, p_min=-0.02, p_max=0.2,
+             max_steps=30), "zh", 0.08, 4)
+    tg = curves["gh_fold_po"].gamma._table()
+    tz = curves["zh_ns"].gamma._table()
+    coefs["gh_curve_gap"] = float(np.max(np.abs(
+        np.asarray(tg["p1"]) - np.asarray(tg["param"]) ** 2 / (4 * l5))))
+    coefs["zh_curve_gap"] = float(np.max(np.abs(
+        np.asarray(tz["p1"]) - 2 * np.asarray(tz["param"])
+        + 4 * np.asarray(tz["param"]) ** 2)))
+    secs["analytic"] = time.perf_counter() - t
+
+    # Lorenz-84: its ZH on the Hopf curve in G (cut just past it, at
+    # G = 1.75) to the NS curve, 3 steps (test_po_switch.py:225-268 runs
+    # 8); the direct MA start collapses onto the trivial multiplier there
+    # and the on-branch fallback delivers the curve
+    t = time.perf_counter()
+    lz = models.lorenz84(device=dev)
+    lbr = bk.continuation(lz, bk.PALC(), bk.ContinuationPar(
+        ds=0.01, dsmax=0.04, dsmin=1e-6, p_min=-1.0, p_max=5.0,
+        max_steps=300, detect_bifurcation=3, nev=4, n_inversion=6,
+        newton_options=bk.NewtonPar(tol=1e-10, max_iterations=30)))
+    lih = next(i for i, s_ in enumerate(lbr.specialpoint)
+               if s_.type == "hopf")
+    lbh = bk.continuation_hopf(lbr, lih, "G", bk.ContinuationPar(
+        ds=0.01, dsmax=0.03, dsmin=1e-6, p_min=0.0001, p_max=1.75,
+        max_steps=100, detect_bifurcation=0, detect_fold=False,
+        newton_options=bk.NewtonPar(tol=1e-9, max_iterations=30)),
+        detect_codim2_bifurcation=2)
+    izh = next(i for i, s_ in enumerate(lbh.gamma.specialpoint)
+               if s_.type == "zh")
+    lns = bk.switch_codim2_po(lbh, izh, bk.ContinuationPar(
+        ds=-0.003, dsmax=0.01, dsmin=1e-9, p_min=0.5, p_max=2.5,
+        max_steps=3, detect_bifurcation=0, detect_event=0,
+        newton_options=bk.NewtonPar(tol=1e-8, max_iterations=40)),
+        disc=bk.Collocation(Ntst=40, m=4), eps=0.15, detect_codim3=0)
+    curves["lorenz84_ns"] = lns
+    mult = bk.po_codim2_test_values(lns, -1)["multipliers"]
+    coefs["lorenz84_ns_unit_gap"] = float(np.min(np.abs(np.abs(
+        mult[np.abs(mult.imag) > 1e-6]) - 1.0)))
+    secs["lorenz84"] = time.perf_counter() - t
+
+    # BVAM at N = 10: the slice's flow with the dense Iooss
+    t = time.perf_counter()
+    leg = bvam_leg(dev, N=BVAM_SMALL_N, switch_steps=2, curve_steps=2)
+    curves["bvam_po"] = leg["brpo"]
+    curves["bvam_pd_curve"] = leg["brc"]
+    coefs["bvam_iooss_a"] = leg["iooss"].nf["a"]
+    coefs["bvam_iooss_b3"] = leg["iooss"].nf["b3"]
+    secs["bvam_small"] = time.perf_counter() - t
+    _sync(dev)
+    return curves, coefs, secs
+
+
+def _table_gap(a, b):
+    """The largest gap of the comparable columns of two branch tables,
+    inf when their lengths or special points differ."""
+    ta, tb = a.gamma._table(), b.gamma._table()
+    if len(ta["param"]) != len(tb["param"]) or \
+            [s.type for s in a.gamma.specialpoint] != \
+            [s.type for s in b.gamma.specialpoint]:
+        return np.inf
+    return max(float(np.max(np.abs(np.asarray(ta[k], dtype=complex)
+                                   - np.asarray(tb[k], dtype=complex))))
+               for k in ("param", "p1", "period", "theta") if k in ta)
+
+
+def check_small_po_codim2():
+    """The small PO codim-2 family on the card against the CPU: curves to
+    1e-9, coefficients to 1e-8 relative to max(|c|, 1); the analytic PO
+    curves to 1e-7 (fold of cycles) and 1e-6 (NS); Lorenz-84's NS
+    curve's complex multipliers on the unit circle to 1e-8."""
+    out, seconds = {}, {}
+    threads = torch.get_num_threads()
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        torch.set_num_threads(1)
+        out[dev] = _small_po_family(dev)
+        torch.set_num_threads(threads)
+        seconds[dev] = time.perf_counter() - t0
+    (cc, fc, sc), (cp_, fp_, sp_) = out["cuda"], out["cpu"]
+    worst_curve = 0.0
+    for name in cc:
+        gap = _table_gap(cc[name], cp_[name])
+        worst_curve = max(worst_curve, gap)
+        phase("check_small_po_codim2", curve=name,
+              steps=len(cc[name].gamma) - 1, max_abs_gap=gap,
+              special=[s.type for s in cc[name].gamma.specialpoint])
+    gaps = {k: float(np.max(np.abs(np.asarray(fc[k]) - np.asarray(fp_[k]))
+                            / np.maximum(np.abs(np.asarray(fp_[k])), 1.0)))
+            for k in fc if not k.endswith("_gap")}
+    phase("check_small_po_codim2_coefficients",
+          coefficients={k: (v.tolist() if isinstance(v, np.ndarray)
+                            else complex(v) if isinstance(v, complex)
+                            else float(v)) for k, v in fc.items()},
+          rel_gaps=gaps, seconds=seconds, parts={"cuda": sc, "cpu": sp_})
+    analytic = (fc["gh_curve_gap"] <= 1e-7 and fc["zh_curve_gap"] <= 1e-6
+                and fp_["gh_curve_gap"] <= 1e-7
+                and fp_["zh_curve_gap"] <= 1e-6
+                and fc["lorenz84_ns_unit_gap"] <= 1e-8
+                and fp_["lorenz84_ns_unit_gap"] <= 1e-8)
+    if not (worst_curve <= PO_CURVE_TOL and max(gaps.values()) <= PO_RTOL
+            and analytic):
+        raise AssertionError(
+            f"the small PO codim-2 family: curves {worst_curve}, "
+            f"coefficients {gaps}, analytic {fc['gh_curve_gap']} "
+            f"{fc['zh_curve_gap']}")
+
+
+# ---------------------------------------------------------------------------
 # 4g. po_cgl: cGL2d trapezoid periodic orbits, matrix-free Floquet
 # ---------------------------------------------------------------------------
 
@@ -3113,7 +3696,9 @@ def time_dia(floor):
     for n, offsets, K, dtypes in (
             (2 * BRUSS_SITES, PATH_OFFSETS, 1, f32_64),
             (1 << 20, (-1024, -1, 0, 1, 1024), 1, f32_64),
-            *[(n, off, K, (torch.float64,)) for n, off, K in PDE_DIA]):
+            *[(n, off, K, (torch.float64,)) for n, off, K in PDE_DIA],
+            *[(n, off, K, (torch.float64,)) for n, off, K in BVAM_DIA
+              if K in (240, 400)]):
         for dtype in dtypes:
             A, v = _dia_inputs(n, offsets, K, dtype, seed=7)
             csr = _csr_of(A)
@@ -3241,6 +3826,16 @@ def main():
                                        "check_small_codim2"))
     phase("codim2_budget", seconds=codim2_s, budget_s=CODIM2_BUDGET_S,
           within_budget=codim2_s <= CODIM2_BUDGET_S)
+    dia_phases["po_bvam"], bvam_rows = walled("po_bvam", po_bvam, card)
+    unchecked = sorted(set(bvam_rows) - set(BVAM_DIA_ROWS))
+    if unchecked:
+        raise AssertionError(f"po_bvam launched dia_spmv on {unchecked} "
+                             f"rows, which no compare case checks")
+    dia_launches = sum(dia_phases.values())
+    walled("check_small_po_codim2", check_small_po_codim2)
+    po2_s = WALL_S["po_bvam"] + WALL_S["check_small_po_codim2"]
+    phase("po_codim2_budget", seconds=po2_s, budget_s=BVAM_BUDGET_S,
+          within_budget=po2_s <= BVAM_BUDGET_S)
     floor = device_floor()
     cases = walled("time_kernel", time_kernel, floor)
     dia_cases = walled("time_dia", time_dia, floor)
@@ -3273,7 +3868,8 @@ def main():
         "launches_by_phase": {**sh_phases, "po_cgl": po_launches["sh_jv"],
                               "po_bruss": pob_launches["sh_jv"],
                               "po_bruss_shooting": posh_launches["sh_jv"],
-                              "codim2_bt_pde": 0, "codim2_zh_pde": 0},
+                              "codim2_bt_pde": 0, "codim2_zh_pde": 0,
+                              "po_bvam": 0},
         "cases": cases,
     }, {
         "name": "dia_spmv", "route": "cuda",
@@ -3288,10 +3884,12 @@ def main():
         "library_host_ms": dhead["library_host_ms"],
         "library_device_ms": dhead["library_device_ms"],
         # po_cgl and po_bruss launch none (checked); po_bruss_shooting's
-        # matrix-free monodromy and the codim-2 PDE paths do (checked)
+        # matrix-free monodromy, the codim-2 PDE paths and po_bvam do
+        # (checked)
         "launches_by_phase": {**dia_phases,
                               "po_cgl": po_launches["dia_spmv"],
                               "po_bruss": pob_launches["dia_spmv"]},
+        "po_bvam_launches_by_rows": dict(sorted(bvam_rows.items())),
         "cases": dia_cases,
     }]
     DETAILS["kernels"] = kernels

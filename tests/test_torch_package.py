@@ -48,21 +48,30 @@ CODIM2 = (
     "zh_normal_form", "hh_normal_form", "bautin_unfolding", "bt_unfolding",
     "hh_unfolding", "zh_unfolding", "predictor_fold_po",
     "predictor_homoclinic_bt", "predictor_ns_hh", "predictor_ns_zh",
-    "switch_codim2", "switch_codim2_mf")
+    "switch_codim2", "switch_codim2_mf", "switch_codim2_po")
+# the periodic-orbit codim-2 curves, normal forms and branch switching
+PERIODIC = (
+    "continuation_pd", "continuation_ns", "continuation_fold_po",
+    "bp_po_branch_switch", "pd_branch_switch", "po_codim2_test_values",
+    "get_normal_form_po", "neimark_sacker_iooss", "period_doubling_iooss",
+    "poincare_return_map", "cop_solve", "cop_solve_bordered")
 
 
-@pytest.mark.parametrize("name", EVENTS_AND_ALIASES + CODIM2)
+@pytest.mark.parametrize("name", EVENTS_AND_ALIASES + CODIM2 + PERIODIC)
 def test_public_names(name):
     """Each name is exported at the top level; the codim-2 ones are the
-    same objects as in `codim2` (`normal_forms` for the Bautin form), and
-    the ODE/PDE constructors alias `BifurcationProblem`."""
+    same objects as in `codim2` (`normal_forms` for the Bautin form), the
+    periodic-orbit ones as in `periodic`, and the ODE/PDE constructors
+    alias `BifurcationProblem`."""
     import bifurcationkit.jl_tpu_torch as bt
-    from bifurcationkit.jl_tpu_torch import codim2, normal_forms
+    from bifurcationkit.jl_tpu_torch import codim2, normal_forms, periodic
 
     obj = getattr(bt, name)
     if name in CODIM2:
         home = normal_forms if name == "bautin_normal_form" else codim2
         assert getattr(home, name) is obj
+    if name in PERIODIC:
+        assert getattr(periodic, name) is obj
     if name in ("ODEBifProblem", "PDEBifProblem"):
         assert obj is bt.BifurcationProblem
 
