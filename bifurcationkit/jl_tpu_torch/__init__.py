@@ -3,7 +3,8 @@
 
 Same layout and names as the JAX package (`core/`, `linalg/`, `newton.py`,
 `deflation.py`, `models/`, `ops/`, `continuation/`, `detection/`,
-`normal_forms/`, `codim2/`, `periodic/`); plain PyTorch inside:
+`normal_forms/`, `codim2/`, `periodic/`, `wave/`, `bvp/`, `utils/`,
+`native/`); plain PyTorch inside:
 functions on tensors, frozen dataclasses for solver configs, explicit
 `device=`/`dtype=` and explicit `torch.Generator`s.  The JAX package's
 Pallas kernels are CUDA C++ kernels for Hopper: the fused Swift-Hohenberg
@@ -66,6 +67,12 @@ from .detection import (ContinuousEvent, DiscreteEvent,  # noqa: E402
                         PairOfEvents, SetOfEvents, SpecialPoint,
                         bif_detect_event, fold_detect_event, save_at_event)
 from .ops import BSRMatrix, DIAMatrix, ELLMatrix, dia_spmv  # noqa: E402
+from .utils import (load_branch, plot_bifurcation_diagram,  # noqa: E402
+                    plot_branch, plot_periodic_orbit, resume_data,
+                    save_branch, save_every_step, savefig)
+from .wave import travelling_wave_problem  # noqa: E402
+from .bvp import (BVPCollocation, BVPModel, BVPShooting,  # noqa: E402
+                  BVPTrapezoid, bvp_problem, discretize)
 from .normal_forms import (BifDiagNode, bautin_normal_form,  # noqa: E402
                            bifurcationdiagram, continuation_from_bp,
                            get_normal_form, hopf_normal_form,
@@ -100,7 +107,8 @@ from .periodic import (bp_po_branch_switch, continuation_fold_po,  # noqa: E402
 __version__ = "0.1.0"
 
 _LAZY_SUBMODULES = ("models", "ops", "linalg", "detection", "continuation",
-                    "normal_forms", "codim2", "periodic", "core", "interop")
+                    "normal_forms", "codim2", "periodic", "core", "interop",
+                    "wave", "bvp", "utils", "native")
 
 
 def __getattr__(name):

@@ -3,29 +3,40 @@
 //   out_k = -(I + Lap)^2 v_k + (l + 2 nu u - 3 u^2) v_k,   k = 0..K-1
 //
 // on an (N, M) row-major grid (M contiguous), for a batch of K fields v_k
-// that share one linearisation point u.  Both Laplacians use the Neumann
-// edge-replicating closure: the first one replicates v at the border, the
-// second one replicates w = (I + Lap) v, so w(-1) := w(0).  That is NOT the
-// 13-point biharmonic with clamped v indices, which is wrong on the two
-// outermost rows and columns.
+// that share one linearisation point u.  The closure is a template
+// parameter:
+// - Neumann (SH2d-fronts): both Laplacians replicate the edge, the first
+//   one v at the border, the second one w = (I + Lap) v, so w(-1) := w(0).
+//   That is NOT the 13-point biharmonic with clamped v indices, which is
+//   wrong on the two outermost rows and columns;
+// - Periodic (the periodic SH2d of SH2d-fronts-cuda): every halo source
+//   index wraps, i - 2 + a mod N and j - 2 + b mod M, and w needs no
+//   replacement: with wrapped v indices the 13-point biharmonic is the
+//   periodic operator.
 //
 // Replaces the TPU kernel bifurcationkit/jl_tpu/ops/pallas_sh.py::
 // sh_jv_pallas (body _sh_jv_kernel), which needs N % block_rows == 0 and
-// M % 128 == 0; this kernel takes any (N, M) and any K.
+// M % 128 == 0; this kernel takes any (N, M) and any K.  The periodic
+// closure computes the J.v that the JAX package's periodic model
+// (jl_tpu/models/sh.py::swift_hohenberg_periodic_2d) takes by jvp of its
+// residual.
 //
 // Bound: bytes.  The function moves (1 + 2K) * N * M * sizeof(T) bytes for
 // about 24 * K * N * M flops.  On the flagship's 151 x 100 grid that is
 // 0.05-4.4 microseconds of HBM time (f32 K = 1 to f64 K = 60), so what
 // bounds a call there is the launch, the latency of the first loads and,
 // at LOBPCG's K = 60, how many fields each SM keeps in flight against the
-// instructions and registers each output costs.
+// instructions and registers each output costs.  On the periodic model's
+// 512 x 512 grid it is 1.9 microseconds (f64, K = 1) to 9.7 (f32, K = 15),
+// where the halo's reads and HBM's rate set the time.
 //
 // Design: a block owns one TN x tm output tile (tm <= TM = 64 columns, one
 // per thread in x, spread evenly over the tiles of a row: two tiles of 50
 // at M = 100; each thread computes R rows of its column) and walks a chunk
 // of kc of the K fields:
-// - per block, once: each thread works out the clamped (Neumann) source
-//   offsets of its share of the (TN+4) x (tm+4) v halo, with no division,
+// - per block, once: each thread works out the clamped (Neumann) or
+//   wrapped (periodic) source offsets of its share of the (TN+4) x (tm+4)
+//   v halo (one modulo per point for the periodic closure),
 //   and keeps them in registers with the diagonal coefficient
 //   l + 2 nu u - 3 u^2 of its R outputs.  u is read once per block, not
 //   once per field;
@@ -38,9 +49,9 @@
 //   precomputed offsets.  One barrier per field;
 // - the stencils run in registers: each thread slides a window down its R
 //   rows and computes w = (I + Lap) v at its column and at the columns on
-//   either side from the halo, so w never exists in memory.  A neighbour
-//   of w outside the domain is w at the centre (the second Laplacian's
-//   closure: w(-1) := w(0));
+//   either side from the halo, so w never exists in memory.  With the
+//   Neumann closure a neighbour of w outside the domain is w at the
+//   centre (the second Laplacian's closure: w(-1) := w(0));
 // - grid: R = 4 (TN = 16-row tiles; at M = 100 two tiles of 50 columns
 //   read (16 + 4) x (50 + 4) halo points for 16 x 50 outputs, 1.35x, and
 //   1.43x over the 151 rows with the ragged last tile) when the tiles times
@@ -77,6 +88,18 @@ struct Tile {
 
 __device__ __forceinline__ int clampi(int i, int n) {
   return i < 0 ? 0 : (i >= n ? n - 1 : i);
+}
+
+// i mod n in [0, n) for any i >= -2 and n >= 1 (a halo index)
+__device__ __forceinline__ int wrapi(int i, int n) {
+  const int r = i % n;
+  return r < 0 ? r + n : r;
+}
+
+// The halo's source index along an axis of n points.
+template <bool PERIODIC>
+__device__ __forceinline__ int source(int i, int n) {
+  return PERIODIC ? wrapi(i, n) : clampi(i, n);
 }
 
 // Row and column of the first element of a thread in a W-wide row-major
@@ -118,7 +141,7 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
-template <typename T, int R>
+template <typename T, int R, bool PERIODIC>
 __global__ void __launch_bounds__(NT, 2)
 sh_jv_kernel(const T* __restrict__ u, const T* __restrict__ v,
              const T* __restrict__ scal, T* __restrict__ out, int N, int M,
@@ -136,8 +159,9 @@ sh_jv_kernel(const T* __restrict__ u, const T* __restrict__ v,
   const long long plane = static_cast<long long>(N) * M;
 
   // Sources of this thread's halo points in a field, clamped to the domain
-  // (the v-level closure), or -1 past the halo's TN + 4 rows and tm + 4
-  // columns.  sv[.][tid + q NT] is v[clamp(i0-2+a)][clamp(j0-2+b)].
+  // or wrapped around it (the v-level closure), or -1 past the halo's
+  // TN + 4 rows and tm + 4 columns.  sv[.][tid + q NT] is
+  // v[source(i0-2+a)][source(j0-2+b)].
   long long src[G::HQ];
   {
     int a, b;
@@ -145,8 +169,8 @@ sh_jv_kernel(const T* __restrict__ u, const T* __restrict__ v,
 #pragma unroll
     for (int q = 0; q < G::HQ; ++q) {
       src[q] = a < G::HN && b < tm + 4
-          ? static_cast<long long>(clampi(i0 - 2 + a, N)) * M
-                + clampi(j0 - 2 + b, M)
+          ? static_cast<long long>(source<PERIODIC>(i0 - 2 + a, N)) * M
+                + source<PERIODIC>(j0 - 2 + b, M)
           : -1;
       next<G::HM>(a, b);
     }
@@ -184,15 +208,16 @@ sh_jv_kernel(const T* __restrict__ u, const T* __restrict__ v,
                                   : T(0);
     coef[r] = l + T(2) * nu * uu - T(3) * uu * uu;
   }
-  // w at a clamped neighbour is w at the centre (the second Laplacian's
-  // closure): these say which neighbours lie outside the domain
-  const bool left_edge = j == 0;
-  const bool right_edge = j == M - 1;
+  // Neumann: w at a clamped neighbour is w at the centre (the second
+  // Laplacian's closure); these say which neighbours lie outside the
+  // domain.  Periodic: none does, the halo already wrapped
+  const bool left_edge = !PERIODIC && j == 0;
+  const bool right_edge = !PERIODIC && j == M - 1;
 
   int cur = 0;                       // buffer of field k
   for (int k = k0; k < k1; ++k) {
     // V(r, d) is v at tile row r, column j + d (halo row r + 2, column
-    // tx + 2 + d), already clamped to the domain
+    // tx + 2 + d), already clamped to or wrapped around the domain
     const T* h = sv[cur] + (a0 + 2) * G::HM + tx + 2;
     const int prev = cur == 0 ? STAGES - 1 : cur - 1;
     cur = cur == STAGES - 1 ? 0 : cur + 1;
@@ -227,8 +252,8 @@ sh_jv_kernel(const T* __restrict__ u, const T* __restrict__ v,
       const T w_r = r_0 + (r_m1 - T(2) * r_0 + r_p1) * ihx2
                         + (c_0 - T(2) * r_0 + r2_0) * ihy2;
       const int i = i0 + a0 + r;
-      const T up = i == 0 ? w_c : w_up;
-      const T dn = i == N - 1 ? w_c : w_dn;
+      const T up = !PERIODIC && i == 0 ? w_c : w_up;
+      const T dn = !PERIODIC && i == N - 1 ? w_c : w_dn;
       const T lf = left_edge ? w_c : w_l;
       const T rt = right_edge ? w_c : w_r;
       const T L1v = w_c + (up - T(2) * w_c + dn) * ihx2
@@ -261,20 +286,21 @@ int sm_count() {
   return sms;
 }
 
-// Blocks of sh_jv_kernel<T, R> that one SM holds at once (registers and
-// shared memory allow), asked of the runtime once per process.
-template <typename T, int R>
+// Blocks of sh_jv_kernel<T, R, PERIODIC> that one SM holds at once
+// (registers and shared memory allow), asked of the runtime once per
+// process.
+template <typename T, int R, bool PERIODIC>
 int resident_per_sm() {
   static const int blocks = [] {
     int b = 0;
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&b, sh_jv_kernel<T, R>, NT,
-                                                  0);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &b, sh_jv_kernel<T, R, PERIODIC>, NT, 0);
     return b > 0 ? b : 1;
   }();
   return blocks;
 }
 
-template <typename T, int R>
+template <typename T, int R, bool PERIODIC>
 int walk(const T* u, const T* v, const T* scal, T* out, int N, int M, int K,
          cudaStream_t stream) {
   using G = Tile<R>;
@@ -285,17 +311,18 @@ int walk(const T* u, const T* v, const T* scal, T* out, int N, int M, int K,
   // fields per block: the fewest that fit the grid into one wave of
   // resident blocks, so that no tail wave follows
   const long long wave =
-      static_cast<long long>(sm_count()) * resident_per_sm<T, R>();
+      static_cast<long long>(sm_count()) *
+      resident_per_sm<T, R, PERIODIC>();
   long long kc = (tiles * K + wave - 1) / wave;
   kc = kc < 1 ? 1 : (kc > K ? K : kc);
   const int chunks = static_cast<int>((K + kc - 1) / kc);
   const dim3 grid(tiles_x, tiles_y, chunks);
-  sh_jv_kernel<T, R><<<grid, dim3(TX, TY, 1), 0, stream>>>(
+  sh_jv_kernel<T, R, PERIODIC><<<grid, dim3(TX, TY, 1), 0, stream>>>(
       u, v, scal, out, N, M, K, static_cast<int>(kc), tm);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
+template <typename T, bool PERIODIC>
 int launch(const T* u, const T* v, const T* scal, T* out, int N, int M, int K,
            void* stream) {
   if (N < 1 || M < 1 || K < 0 || K > MAX_BATCH) {
@@ -307,19 +334,31 @@ int launch(const T* u, const T* v, const T* scal, T* out, int N, int M, int K,
   const long long big_tiles =
       static_cast<long long>((N + Big::TN - 1) / Big::TN) * ((M + TX - 1) / TX);
   if (big_tiles * K >= sm_count()) {
-    return walk<T, BIG_R>(u, v, scal, out, N, M, K, s);
+    return walk<T, BIG_R, PERIODIC>(u, v, scal, out, N, M, K, s);
   }
-  return walk<T, SMALL_R>(u, v, scal, out, N, M, K, s);
+  return walk<T, SMALL_R, PERIODIC>(u, v, scal, out, N, M, K, s);
 }
 
 }  // namespace
 
 extern "C" int sh_jv_f32(const float* u, const float* v, const float* scal,
                          float* out, int N, int M, int K, void* stream) {
-  return launch<float>(u, v, scal, out, N, M, K, stream);
+  return launch<float, false>(u, v, scal, out, N, M, K, stream);
 }
 
 extern "C" int sh_jv_f64(const double* u, const double* v, const double* scal,
                          double* out, int N, int M, int K, void* stream) {
-  return launch<double>(u, v, scal, out, N, M, K, stream);
+  return launch<double, false>(u, v, scal, out, N, M, K, stream);
+}
+
+extern "C" int sh_jv_periodic_f32(const float* u, const float* v,
+                                  const float* scal, float* out, int N, int M,
+                                  int K, void* stream) {
+  return launch<float, true>(u, v, scal, out, N, M, K, stream);
+}
+
+extern "C" int sh_jv_periodic_f64(const double* u, const double* v,
+                                  const double* scal, double* out, int N,
+                                  int M, int K, void* stream) {
+  return launch<double, true>(u, v, scal, out, N, M, K, stream);
 }

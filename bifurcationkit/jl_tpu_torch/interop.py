@@ -198,3 +198,17 @@ def po_ma_point_to_numpy(Y, params: Dict[str, Any]):
     par["_inner"] = {k: float(_to_numpy(v))
                      for k, v in params["_inner"].items()}
     return _to_numpy(Y), par
+
+
+def wave_state_to_numpy(X, n_inner: int) -> Tuple[np.ndarray, np.ndarray]:
+    """A travelling-wave state [u_flat, s_1..s_k] of either package as
+    (u_flat, speeds)."""
+    X = _to_numpy(X)
+    return X[:n_inner], X[n_inner:]
+
+
+def bvp_nodes_to_numpy(X, n: int) -> np.ndarray:
+    """A BVP state of either package as its (nodes, n) table: the
+    discretization's node states one after the other (collocation,
+    trapezoid or shooting)."""
+    return _to_numpy(X).reshape(-1, n)

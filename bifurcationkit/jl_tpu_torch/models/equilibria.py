@@ -8,7 +8,9 @@ equation, the CO-oxidation and Tsodyks-Markram models, the Lur'e and
 Freire oscillators (the periodic-orbit codim-2 fixtures), the two PDE
 models with exact codim-2 geometry (`fold_hopf_interaction_2d`,
 `bogdanov_takens_2d`) and the BVAM period-doubling PDE (`bvam_1d`), whose
-J.v applies their Neumann Laplacian through the DIA kernel.
+J.v applies their Neumann Laplacian through the DIA kernel, and the
+quintic 1D Swift-Hohenberg model of the snaking example
+(`swift_hohenberg_1d`).
 
 The Stuart-Landau and cGL2d residuals and their closed-form J.v take a
 leading batch of states natively (`batched_F`), so a periodic orbit's M
@@ -976,3 +978,47 @@ def bvam_1d(N: int = 100, lx: float = 3 * np.pi / 2, D: float = 0.08,
                                   "H": 3.0, "D": D, "C": C}, dtype, dev),
         lens="C", jac=jac, jac_op=jac_op, d2F_user=d2F, d3F_user=d3F,
         record_from_solution=record))
+
+
+def swift_hohenberg_1d(n: int = 200, l_dom: float = 6.0, lam: float = -0.1,
+                       nu: float = 2.0, seed: int = 0, device=None,
+                       dtype: torch.dtype = DEFAULT_DTYPE):
+    """1D quintic Swift-Hohenberg (ref examples/SHpde_snaking.jl:7-35; JAX
+    `equilibria.py::swift_hohenberg_1d`):
+    F = -(I+D2)^2 u + lam u + nu u^3 - u^5 with the plain (Dirichlet
+    closure) second difference, localized-pattern guess 1.1 cos(x) — the
+    reference's homoclinic-snaking workload.  The record's weight `w` is
+    numpy's `default_rng(seed).random(n)`, as in the JAX function."""
+    dev = resolve_device(device)
+    X = -l_dom + 2 * l_dom / n * np.arange(n)
+    h2 = float((X[1] - X[0]) ** 2)
+
+    def lap(u):
+        # Dirichlet closure: zero-pad (ref spdiagm, :16 — corners NOT
+        # modified, unlike the Neumann models)
+        up = torch.nn.functional.pad(u, (1, 1))
+        return (up[..., :-2] - 2 * u + up[..., 2:]) / h2
+
+    def F(u, par):
+        v = u + lap(u)
+        L1u = v + lap(v)
+        return -L1u + par["lam"] * u + par["nu"] * u ** 3 - u ** 5
+
+    def d2F(u, par, dx1, dx2):
+        return (par["nu"] * 6 * u - 5 * 4 * u ** 3) * dx1 * dx2
+
+    def d3F(u, par, dx1, dx2, dx3):
+        return (par["nu"] * 6 - 5 * 4 * 3 * u ** 2) * dx1 * dx2 * dx3
+
+    w = torch.as_tensor(np.random.default_rng(seed).random(n), dtype=dtype,
+                        device=dev)
+
+    def record(x, p, **k):
+        return {"param": p, "norm": torch.linalg.vector_norm(x),
+                "nw": torch.linalg.vector_norm(w * x), "s": torch.sum(x),
+                "s2": x[n // 2], "s4": x[n // 4]}
+
+    return BifurcationProblem(
+        F, u0=torch.as_tensor(1.1 * np.cos(X), dtype=dtype, device=dev),
+        params=_params({"lam": lam, "nu": nu}, dtype, dev), lens="lam",
+        d2F_user=d2F, d3F_user=d3F, record_from_solution=record)

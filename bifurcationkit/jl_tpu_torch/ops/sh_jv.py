@@ -3,8 +3,14 @@ PyTorch version.
 
     J v = -(I + Lap)^2 v + (l + 2 nu u - 3 u^2) v
 
-on an (N, M) grid with the Neumann edge-replicating closure at the v level
-and again at the w = (I + Lap) v level (ref examples/SH2d-fronts.jl:20-24).
+on an (N, M) grid, with one of two closures (`closure=`):
+
+- "neumann" (default): the edge-replicating closure at the v level and
+  again at the w = (I + Lap) v level (ref examples/SH2d-fronts.jl:20-24);
+- "periodic": both Laplacians wrap around the grid, the J.v of the
+  periodic model (ref examples/SH2d-fronts-cuda.jl; the JAX package takes
+  it by `jvp` of `jl_tpu/models/sh.py::swift_hohenberg_periodic_2d`).
+
 Port of `jl_tpu/ops/pallas_sh.py` (`sh_jv_pallas` -> `sh_jv`,
 `sh_jv_reference` -> `sh_jv_plain`).  The kernel (`csrc/sh_jv.cu`) takes any
 (N, M), f32 or f64, and a batch of K fields v of shape (K, N, M) sharing
@@ -40,19 +46,32 @@ import torch
 from . import nvcc
 
 SOURCE = nvcc.CSRC / "sh_jv.cu"
+CLOSURES = ("neumann", "periodic")
 _MAX_BATCH = 65535          # gridDim.z limit
 _SIGNATURE = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+_ENTRIES = {("neumann", torch.float32): "sh_jv_f32",
+            ("neumann", torch.float64): "sh_jv_f64",
+            ("periodic", torch.float32): "sh_jv_periodic_f32",
+            ("periodic", torch.float64): "sh_jv_periodic_f64"}
+
+
+def _check_closure(closure: str):
+    if closure not in CLOSURES:
+        raise ValueError(f"sh_jv: closure must be one of {CLOSURES}, got "
+                         f"{closure!r}")
 
 
 @functools.lru_cache(maxsize=None)
-def _entry(dtype: torch.dtype):
-    """The kernel's entry point for dtype, built and bound at first use."""
-    lib = nvcc.load_library(SOURCE, {"sh_jv_f32": _SIGNATURE,
-                                     "sh_jv_f64": _SIGNATURE})
-    return lib.sh_jv_f64 if dtype == torch.float64 else lib.sh_jv_f32
+def _entry(dtype: torch.dtype, closure: str = "neumann"):
+    """The kernel's entry point for dtype and closure, built and bound at
+    first use."""
+    lib = nvcc.load_library(SOURCE, {name: _SIGNATURE
+                                     for name in _ENTRIES.values()})
+    return getattr(lib, _ENTRIES[(closure, dtype)])
 
 
-def _card_operator(u: torch.Tensor, scal: torch.Tensor):
+def _card_operator(u: torch.Tensor, scal: torch.Tensor,
+                   closure: str = "neumann"):
     """v -> J v through the kernel, with u and scal checked here once."""
     for name, t in (("u", u), ("scal", scal)):
         nvcc.check_no_derivative("sh_jv", name, t)
@@ -63,8 +82,10 @@ def _card_operator(u: torch.Tensor, scal: torch.Tensor):
     if scal.shape != (4,):
         raise ValueError(f"sh_jv: scal must have shape (4,), got "
                          f"{tuple(scal.shape)}")
-    fn = _entry(u.dtype)
+    _check_closure(closure)
+    fn = _entry(u.dtype, closure)
     device, index, dtype, field = u.device, u.get_device(), u.dtype, u.shape
+    case = (closure, str(dtype).split(".")[-1])
     N, M = field
     u_ptr, scal_ptr = u.data_ptr(), scal.data_ptr()
 
@@ -92,40 +113,54 @@ def _card_operator(u: torch.Tensor, scal: torch.Tensor):
         if err != 0:
             raise RuntimeError(f"sh_jv kernel launch failed: CUDA error "
                                f"{err} ({N}x{M}, K={K}, {dtype})")
-        sh_jv.launches += 1
-        by_batch = sh_jv.launches_by_batch
-        by_batch[K] = by_batch.get(K, 0) + 1
+        key = case + (K,)
+        sh_jv.launches_by_case[key] = sh_jv.launches_by_case.get(key, 0) + 1
         return out
 
     op.u, op.scal = u, scal        # the pointers above stay valid with them
     return op
 
 
-def sh_jv_operator(u: torch.Tensor, scal: torch.Tensor):
+def sh_jv_operator(u: torch.Tensor, scal: torch.Tensor,
+                   closure: str = "neumann"):
     """The map v -> J(u) v of `sh_jv` at one linearisation point.  On the
     card, u and scal are checked once here and each call checks only v;
     with u and scal on the CPU, each call is `sh_jv`."""
     if u.device.type == "cpu" and scal.device.type == "cpu":
-        return lambda v: sh_jv(u, v, scal)
-    return _card_operator(u, scal)
+        return lambda v: sh_jv(u, v, scal, closure)
+    return _card_operator(u, scal, closure)
 
 
-def sh_jv(u: torch.Tensor, v: torch.Tensor, scal: torch.Tensor
-          ) -> torch.Tensor:
+def sh_jv(u: torch.Tensor, v: torch.Tensor, scal: torch.Tensor,
+          closure: str = "neumann") -> torch.Tensor:
     """Fused J.v.  u: (N, M); v: (N, M) or (K, N, M); scal: (4,)
-    [l, nu, 1/hx^2, 1/hy^2], all of one dtype (f32 or f64).
+    [l, nu, 1/hx^2, 1/hy^2], all of one dtype (f32 or f64); closure
+    "neumann" or "periodic".
 
     CPU tensors take `sh_jv_plain`; CUDA tensors launch the kernel on the
-    current stream (counted in `sh_jv.launches`, and by batch size K in
-    `sh_jv.launches_by_batch`) or raise."""
+    current stream (counted by (closure, dtype, K) in
+    `sh_jv.launches_by_case`; `launch_count` and `launches_by_batch` read
+    it) or raise."""
     if u.device.type == "cpu" and v.device.type == "cpu" \
             and scal.device.type == "cpu":
-        return sh_jv_plain(u, v, scal)
-    return _card_operator(u, scal)(v)
+        return sh_jv_plain(u, v, scal, closure)
+    return _card_operator(u, scal, closure)(v)
 
 
-sh_jv.launches = 0
-sh_jv.launches_by_batch = {}
+sh_jv.launches_by_case = {}       # (closure, dtype name, K) -> launches
+
+
+def launch_count() -> int:
+    """The kernel's launches so far."""
+    return sum(sh_jv.launches_by_case.values())
+
+
+def launches_by_batch() -> dict:
+    """The kernel's launches so far by batch size K."""
+    out = {}
+    for (_, _, k), n in sh_jv.launches_by_case.items():
+        out[k] = out.get(k, 0) + n
+    return dict(sorted(out.items()))
 
 
 def lap_neumann(u: torch.Tensor, h2, axis: int) -> torch.Tensor:
@@ -139,15 +174,23 @@ def lap_neumann(u: torch.Tensor, h2, axis: int) -> torch.Tensor:
     return (um - 2 * u + up) / h2
 
 
-def sh_jv_plain(u: torch.Tensor, v: torch.Tensor, scal: torch.Tensor
-                ) -> torch.Tensor:
+def lap_periodic(u: torch.Tensor, h2, axis: int) -> torch.Tensor:
+    """1D periodic second difference (JAX `_lap_periodic`,
+    jl_tpu/models/sh.py:110-119)."""
+    return (torch.roll(u, 1, axis) - 2 * u + torch.roll(u, -1, axis)) / h2
+
+
+def sh_jv_plain(u: torch.Tensor, v: torch.Tensor, scal: torch.Tensor,
+                closure: str = "neumann") -> torch.Tensor:
     """The unfused formulation (counterpart of `sh_jv_reference`,
-    `jl_tpu/ops/pallas_sh.py`); v may carry a leading batch dimension."""
+    `jl_tpu/ops/pallas_sh.py`, and of `jax.jvp` of the periodic model's
+    F); v may carry a leading batch dimension."""
+    _check_closure(closure)
     l, nu, inv_hx2, inv_hy2 = scal[0], scal[1], scal[2], scal[3]
+    lap1 = lap_periodic if closure == "periodic" else lap_neumann
 
     def lap(a):
-        return (lap_neumann(a, 1.0 / inv_hx2, -2)
-                + lap_neumann(a, 1.0 / inv_hy2, -1))
+        return lap1(a, 1.0 / inv_hx2, -2) + lap1(a, 1.0 / inv_hy2, -1)
 
     w = v + lap(v)
     L1v = w + lap(w)

@@ -18,11 +18,14 @@ Phases, one line each (a failing phase raises and the script exits non-zero):
    and 8), at a ragged n, with offsets +-5000 on n = 20,000, with 5
    diagonals on 2^20 rows, at n of 1 to 3, with 12 and 32 diagonals, and
    on a matrix whose `data` is replaced after its first product (the
-   product must read what the matrix holds at the call);
+   product must read what the matrix holds at the call); the SH J.v's
+   periodic closure (`compare_periodic`) at 512x512 with every batch size
+   the periodic SH2d launches and one past each, at the flagship grid and
+   at odd and tiny grids;
 4. main paths, each with every kernel's launch count reset just before it
    and read just after:
    a. the SH2d-fronts flagship at 151x100 — Newton, then PALC through
-      `ContIterable` (2 warm-up + 6 timed steps) and `continuation()` with
+      `ContIterable` (2 warm-up + 4 timed steps) and `continuation()` with
       bifurcation detection up to the step just past the branch's first
       branch point (FLAGSHIP_BP_STEPS) — and one profiled step (busy
       time, idle share, longest kernels); the `sh_jv` launches split by
@@ -48,7 +51,7 @@ Phases, one line each (a failing phase raises and the script exits non-zero):
       eigensolves) to the step just past its first fold
       (FLAGSHIP_FOLD_STEPS), then the matrix-free minimally augmented
       fold curve in nu there (examples/sh2d_fronts.py:143-176, bench.py's
-      `ma_mf`): 1 warm and 3 timed steps through the kernel — steps/s,
+      `ma_mf`): 1 warm and 2 timed steps through the kernel — steps/s,
       the anchors' bootstrap, extended solves and GMRES iterations per
       step, GMRES iterations per solve, `sh_jv` launches by batch size —
       then one more of the curve's own steps under torch.profiler (busy
@@ -85,7 +88,7 @@ Phases, one line each (a failing phase raises and the script exits non-zero):
       bench's settings leave the rest of a cluster of multipliers near
       0.0102 unconverged); the trivial one within 1e-3 of 1; the same
       unstable count; neither kernel launched; then the same
-      leg at 21x11 for 2 steps on the card and on the CPU (`po_cgl_small`:
+      leg at 21x11 for 1 step on the card and on the CPU (`po_cgl_small`:
       (r, T) to 1e-7 relative, multipliers to 1e-5);
    h. `po_bruss`: the collocation periodic orbits of bench.py:373-438
       (BENCH_KIND=po) at full width: the 128-site Brusselator's Hopf
@@ -151,6 +154,33 @@ Phases, one line each (a failing phase raises and the script exits non-zero):
       model's J.v through the kernel against the plain version (1e-12)
       and the Iooss form at the same PD recomputed with every J.v through
       the plain version (a and b3 to 1e-8);
+   m. the model zoo (section 4m), each phase with the launch counts
+      reset just before it and read just after, 240 s together at most
+      (printed): `sh_periodic`, bench.py's BENCH_KIND=cuda_analog at its
+      512x512 (262,144 unknowns, f64) on its accelerator branch — Newton
+      to 5e-7, 2 warm + 4 timed PALC steps with LOBPCG detection, one
+      profiled step, every J.v through `sh_jv`'s periodic closure (its
+      launches by dtype and K; the Neumann closure never), the kernel at
+      the Newton point against its plain version (f64 1e-12, f32 1e-5)
+      and the FFT preconditioner as the exact inverse (1e-10);
+      `check_sh_periodic`, test_sh_periodic.py's N = 64 on the card and
+      the CPU (p to 1e-8, equal counts; the card's spectrum against
+      ARPACK's shift-invert on the scipy.sparse assembly to 1e-5);
+      `sh3d`, examples/sh3d.py at N = 22 for 8 steps (its first Newton on
+      the CPU), and at N = 10 Newton and the dense spectrum card against
+      CPU to 1e-8; `sh1d_snaking`, the flat branch at n = 200 with its
+      five bifurcations at the exact thresholds to 2e-3 and its first 30
+      steps against the CPU's (p to 1e-9, the same types); `wave`, the
+      Nagumo front and the two-generator cGL pulse of test_wave_bvp.py
+      (exact speeds, far fields, two zero modes) card against CPU to
+      1e-9; `bvp`, the Duffing resonance curve (400 steps; its folds
+      within 2e-2 of 0.7416 and 2.4608, t(1) = 1 to 1e-8; its first 6
+      steps against the CPU's), the Bratu fold by `newton_fold` on
+      collocation (card and CPU) and shooting within 5e-5 of
+      3.513830719, the condensed BVP solve against the dense one to
+      1e-10; `io_native`, branch files written and read back, a
+      `BranchLog` round trip and the host converters of the compiled
+      native library;
 5. check: the flagship's last point is a finite root of F, a 60x40 SH
    branch and a 32-site Brusselator branch on the card match the same
    branches on the CPU, the matrix-free normal form at the 60x40
@@ -185,7 +215,10 @@ Phases, one line each (a failing phase raises and the script exits non-zero):
    the BVAM path's, n = 100 with 240 and 400 rows).  At K = 1 on the
    flagship grid and at the Brusselator path's shape the host time is
    split into its parts: the output's allocation, the ctypes call (with
-   the CUDA launch in it), and the stream and device queries around it.
+   the CUDA launch in it), and the stream and device queries around it;
+   the SH J.v's periodic closure at 512x512 (K = 1 in f32 and f64, and
+   LOBPCG's K = 15 in f32), beside the Neumann closure at the same
+   shapes.
 
 Then each part's seconds on the host clock (`wall`), the nvidia-smi line,
 one JSON line listing the kernels (po_cgl and po_bruss launch neither:
@@ -226,6 +259,11 @@ from bifurcationkit.jl_tpu_torch.ops.dia_spmv import (  # noqa: E402
     SOURCE as DIA_SOURCE, _c_offsets, _entry as dia_entry, dia_spmv_bytes,
     dia_spmv_flops, dia_spmv_plain)
 
+# the wave and BVP fixtures of the JAX package's tests, in PyTorch
+sys.path.insert(0, os.path.join(ROOT, "tests"))
+from _bvp_wave_models import (  # noqa: E402
+    BRATU_FOLD, bratu, cgl_pulse, duffing, nagumo)
+
 # NVIDIA H100 SXM data sheet: HBM3 3.35 TB/s; FP64 34 TFLOP/s and FP32
 # 67 TFLOP/s outside the tensor cores (neither kernel uses them)
 HBM_BYTES_PER_S = 3.35e12
@@ -242,11 +280,12 @@ FLAGSHIP_BP_STEPS = 11
 # l = -0.2151245 (recorded at step 10) is detected after step 11 on the
 # H100; the bench runs at most 60 steps
 FLAGSHIP_FOLD_STEPS = 11
-FOLD_WARM, FOLD_TIMED = 1, 3   # fold-curve steps, as bench.py's ma_mf
+FOLD_WARM, FOLD_TIMED = 1, 2   # fold-curve steps (bench.py's ma_mf: 30)
 CODIM2_TOL = 1e-8          # curves through a kernel against a reference
 # depth cut of the Brusselator's Hopf curve (examples/brusselator.py runs
-# it to beta = 10.5)
-BRUSS_HOPF_STEPS = 6
+# it to beta = 10.5): 4 steps, so that the script keeps its time limit
+# with the phases of section 4m
+BRUSS_HOPF_STEPS = 4
 L1_RTOL = 1e-6             # l1 through a kernel against the dense witness
 NF_KEYS = ("a01", "b11", "b20", "b30")
 NF_INDICES = {"a01": 1, "b11": 2, "b20": 3, "b30": 4}
@@ -303,8 +342,7 @@ def build():
 
 
 def reset_launches():
-    sh_jv_mod.sh_jv.launches = 0
-    sh_jv_mod.sh_jv.launches_by_batch.clear()
+    sh_jv_mod.sh_jv.launches_by_case.clear()
     dia_spmv.launches = 0
 
 
@@ -353,6 +391,45 @@ def compare_kernel():
                 worst_main = max(worst_main, abs_err)
                 flagship_ks.add(K)
     return worst_main, flagship_ks
+
+
+# the periodic closure: the 512x512 path at every (dtype, K) it launches
+# (GMRES's K = 1; LOBPCG's blocks of 15 = 11 + 4 fields, its f32 sweeps
+# on 3 blocks, 45, and its f64 Rayleigh-Ritz on 2, 30) and one past each,
+# the
+# flagship grid, and grids with N or M in {1, 2, 3, 5}, where the wrap
+# meets itself inside the halo
+PERIODIC_CASES = [((512, 512), 1), ((512, 512), 2), ((512, 512), 15),
+                  ((512, 512), 16), ((512, 512), 30), ((512, 512), 31),
+                  ((512, 512), 45), ((512, 512), 46),
+                  ((151, 100), 1), ((151, 100), 15), ((37, 23), 3),
+                  ((1, 1), 1), ((1, 7), 2), ((2, 5), 3), ((3, 130), 1),
+                  ((5, 2), 15), ((70, 1), 2), ((21, 130), 4)]
+
+
+def compare_periodic():
+    """`sh_jv(..., closure="periodic")` against its plain version (the
+    closure's own entry points) on the card, f64 and f32."""
+    worst, path_cases = 0.0, set()
+    for dtype in (torch.float64, torch.float32):
+        for i, (shape, K) in enumerate(PERIODIC_CASES):
+            u, v, scal = _inputs(shape, K, dtype, seed=50 + i)
+            vv = v if K > 1 else v[0]
+            out = sh_jv_mod.sh_jv(u, vv, scal, closure="periodic")
+            torch.cuda.synchronize()
+            ref = sh_jv_mod.sh_jv_plain(u, vv, scal, closure="periodic")
+            abs_err = float((out - ref).abs().max())
+            rel = abs_err / float(ref.abs().max())
+            phase("compare_periodic", dtype=str(dtype).split(".")[-1],
+                  shape=f"{shape[0]}x{shape[1]}", K=K, max_abs_err=abs_err,
+                  max_rel_err=rel, tol=TOL[dtype])
+            if not (rel < TOL[dtype]):
+                raise AssertionError(f"sh_jv's periodic closure disagrees "
+                                     f"with its plain version: {rel}")
+            if shape == (SHP_N, SHP_N):
+                worst = max(worst, abs_err)
+                path_cases.add((str(dtype).split(".")[-1], K))
+    return worst, path_cases
 
 
 # (n, offsets, K): the Brusselator path's shape at K = 1 and 8, a ragged n,
@@ -478,7 +555,7 @@ def flagship_config(prob, max_steps):
     return ls, cp
 
 
-def main_path(card, warmup=2, timed=6, detect_steps=FLAGSHIP_BP_STEPS):
+def main_path(card, warmup=2, timed=4, detect_steps=FLAGSHIP_BP_STEPS):
     reset_launches()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -533,8 +610,8 @@ def main_path(card, warmup=2, timed=6, detect_steps=FLAGSHIP_BP_STEPS):
     if not any(sp.type in ("bp", "nd") for sp in br.specialpoint):
         raise AssertionError(f"the flagship met no branch point in "
                              f"{detect_steps} steps")
-    launches = sh_jv_mod.sh_jv.launches
-    by_batch = dict(sorted(sh_jv_mod.sh_jv.launches_by_batch.items()))
+    launches = sh_jv_mod.launch_count()
+    by_batch = sh_jv_mod.launches_by_batch()
     if launches <= 0:
         raise AssertionError("the main path never launched the sh_jv kernel")
     phase("main_path", steps_per_s=steps_per_s, warm_step_s=warm,
@@ -602,8 +679,9 @@ def _busy_fields(rows, wall, kernel, step_times, p):
 
 
 def _profiled_step(it, state, kernel, step_times):
-    """One PALC step under torch.profiler (`_busy_fields`)."""
-    rows, wall = _profile(lambda: it.iterate(state))
+    """One PALC step under torch.profiler (`_busy_fields`), recording the
+    card's activity alone (the rows need nothing else)."""
+    rows, wall = _profile(lambda: it.iterate(state), cuda_only=True)
     if not state.converged:
         raise AssertionError("the profiled PALC step did not converge")
     return _busy_fields(rows, wall, kernel, step_times, state.p)
@@ -731,7 +809,7 @@ def brusselator_path(card):
           special=[(sp.type, sp.param, sp.status) for sp in br.specialpoint],
           seconds=seconds, total_seconds=time.perf_counter() - t0,
           dia_spmv_launches=launches,
-          sh_jv_launches=sh_jv_mod.sh_jv.launches, card=repr(card))
+          sh_jv_launches=sh_jv_mod.launch_count(), card=repr(card))
     if not hopf or hopf[0].status != "converged":
         raise AssertionError("the Brusselator branch did not detect and "
                              "bisect a Hopf point")
@@ -745,7 +823,7 @@ def brusselator_path(card):
     return launches, seconds, prob, br
 
 
-def bruss_breakdown(prob, cp, unprofiled=2):
+def bruss_breakdown(prob, cp, unprofiled=1):
     """One profiled Brusselator step (`_profiled_step`) after `unprofiled`
     timed ones."""
     it = ContIterable(prob, bk.PALC(), cp)
@@ -957,8 +1035,8 @@ def flagship_bp(card, prob, ls, br, **domain):
         nf = bk.get_normal_form(br, idx, matrix_free=True)
         torch.cuda.synchronize()
     nf_s = time.perf_counter() - t0
-    nf_launches = sh_jv_mod.sh_jv.launches
-    nf_by_batch = dict(sorted(sh_jv_mod.sh_jv.launches_by_batch.items()))
+    nf_launches = sh_jv_mod.launch_count()
+    nf_by_batch = sh_jv_mod.launches_by_batch()
     coef = {k: (v if np.ndim(v) == 0 else np.round(v, 10).tolist())
             for k, v in interop.normal_form_to_numpy(nf)["nf"].items()
             if k in NF_KEYS + ("a02",)}
@@ -1028,8 +1106,8 @@ def flagship_bp(card, prob, ls, br, **domain):
         fields = _abs_checks(prob, nf, b, preds, cp_abs.max_steps)
         steps += fields["steps"]
         phase("flagship_abs", **fields)
-    launches = sh_jv_mod.sh_jv.launches
-    by_batch = dict(sorted(sh_jv_mod.sh_jv.launches_by_batch.items()))
+    launches = sh_jv_mod.launch_count()
+    by_batch = sh_jv_mod.launches_by_batch()
     phase("flagship_bp", abs_seconds=abs_s, abs_steps=steps,
           abs_step_seconds=step_s, abs_median_step_s=float(np.median(step_s)),
           sh_jv_launches=launches, sh_jv_launches_by_batch=by_batch,
@@ -1178,8 +1256,8 @@ class StepStamps:
         if len(self.t) == self.profile_after:
             from torch.profiler import ProfilerActivity, profile
 
-            self._prof = profile(activities=[ProfilerActivity.CPU,
-                                             ProfilerActivity.CUDA])
+            # the card's activity alone: the rows need nothing else
+            self._prof = profile(activities=[ProfilerActivity.CUDA])
             self._prof.__enter__()
 
     def per_step(self, name):
@@ -1294,8 +1372,8 @@ def flagship_fold(card):
     finally:
         minaug_mf.bootstrap_fold_anchors = orig
     seconds = time.perf_counter() - t1
-    launches = sh_jv_mod.sh_jv.launches
-    by_batch = dict(sorted(sh_jv_mod.sh_jv.launches_by_batch.items()))
+    launches = sh_jv_mod.launch_count()
+    by_batch = sh_jv_mod.launches_by_batch()
     timed = np.diff(stamps.t[FOLD_WARM - 1:timed_end])
     curve = interop.codim2_branch_to_numpy(brf)
     gm = log.summary(n)
@@ -1346,7 +1424,7 @@ def flagship_fold(card):
                                detect_codim2_bifurcation=2,
                                jacobian_ma="minaug")
     torch.cuda.synchronize()
-    plain_launches = sh_jv_mod.sh_jv.launches
+    plain_launches = sh_jv_mod.launch_count()
     cp_ = interop.codim2_branch_to_numpy(brp)
     k = len(cp_["param"])
     gap = max(float(np.max(np.abs(cp_["param"] - curve["param"][:k]))),
@@ -1777,7 +1855,7 @@ def codim2_bt_pde(card):
         leg = bt_pde_leg("cuda", stamps=stamps)
     seconds = time.perf_counter() - t0
     launches = dia_spmv.launches
-    sh_launches = sh_jv_mod.sh_jv.launches
+    sh_launches = sh_jv_mod.launch_count()
     prob, brf, brh, unf = leg["prob"], leg["brf"], leg["brh"], leg["unf"]
     n = prob.u0.numel()
     s = 1.0 / BT_N
@@ -1919,7 +1997,7 @@ def codim2_zh_pde(card):
         leg = fh_pde_leg("cuda")
     seconds = time.perf_counter() - t0
     launches = dia_spmv.launches
-    sh_launches = sh_jv_mod.sh_jv.launches
+    sh_launches = sh_jv_mod.launch_count()
     prob, brf, brh = leg["prob"], leg["brf"], leg["brh"]
     n = prob.u0.numel()
     tf = interop.codim2_branch_to_numpy(brf)
@@ -2358,7 +2436,7 @@ def po_bvam(card):
     seconds = time.perf_counter() - t0
     launches = dia_spmv.launches
     by_rows = dict(sorted(batches.by_rows.items()))
-    sh_launches = sh_jv_mod.sh_jv.launches
+    sh_launches = sh_jv_mod.launch_count()
     checks, ok = _bvam_checks(leg)
     brpo, brc = leg["brpo"], leg["brc"]
     iooss = leg["iooss"].nf
@@ -2942,7 +3020,7 @@ def po_cgl(card):
     tol_s = it.contparams.tol_stability
     dense_unstable = int(np.sum(np.log(np.abs(dense)) > tol_s))
     trivial = float(np.min(np.abs(mu - 1.0)))
-    launches = {"sh_jv": sh_jv_mod.sh_jv.launches,
+    launches = {"sh_jv": sh_jv_mod.launch_count(),
                 "dia_spmv": dia_spmv.launches}
     timed = [s for s in steps if s["kind"] == "timed"]
     phase("po_cgl", unknowns=M * n + 1, vf_unknowns=n, slices=M,
@@ -2991,7 +3069,7 @@ def po_cgl(card):
     return launches
 
 
-def po_cgl_small(steps=2):
+def po_cgl_small(steps=1):
     """The same leg at 21x11 on the card and on the CPU, from the same
     random start of SubspaceEig (drawn on the CPU): (r, T) to 1e-7
     relative, the multipliers to 1e-5."""
@@ -3187,7 +3265,7 @@ def po_bruss(card, hp):
           **fields)
     check, _ = _floquet_witness(leg)
     periods = [s["T"] for s in steps] + [float(state.z.u[-1])]
-    launches = {"sh_jv": sh_jv_mod.sh_jv.launches,
+    launches = {"sh_jv": sh_jv_mod.launch_count(),
                 "dia_spmv": dia_spmv.launches}
     timed = [s for s in steps if s["kind"] == "timed"]
     n = leg["n"]
@@ -3392,7 +3470,7 @@ def po_bruss_shooting(card):
                              f"periods differ by {coll_gap}")
     poincare = _poincare_from(leg, dev)
     mf = _mf_monodromy(br_cl, dev)
-    launches = {"sh_jv": sh_jv_mod.sh_jv.launches,
+    launches = {"sh_jv": sh_jv_mod.launch_count(),
                 "dia_spmv": dia_spmv.launches}
     phase("po_bruss_shooting", kernel_launches=launches, card=repr(card),
           **poincare, **mf)
@@ -3522,6 +3600,690 @@ def _mf_monodromy(br_cl, dev):
 
 
 # ---------------------------------------------------------------------------
+# 4m. the periodic SH2d of bench.py's BENCH_KIND=cuda_analog at 512x512
+# through sh_jv's periodic closure, SH3d, the SH1d snaking branch,
+# travelling waves, generic BVPs, branch files and the native library
+# ---------------------------------------------------------------------------
+
+SHP_N = 512                # bench.py:272-331: 262,144 unknowns, f64
+SHP_WARM, SHP_TIMED = 2, 4
+SHP_NEWTON_TOL = 5e-7      # bench.py:302-306 (the TPU's f64-emulation floor)
+SHP_SMALL = 64             # test_sh_periodic.py's N: card against CPU
+SHP_SMALL_STEPS = 3
+ARPACK_ATOL = 1e-5         # test_sh_periodic.py's LOBPCG against ARPACK
+SH3D_N, SH3D_STEPS = 22, 8     # examples/sh3d.py: 146 steps cut to 8
+SH3D_SMALL = 10            # test_sh3d.py's N: card against CPU
+# the card's Newton from the example's doubled guess follows the CPU's
+# residuals to this over its first iterations (the port and the JAX
+# package on one CPU: 1.1e-8 after 8 iterations, test_torch_sh3d.py)
+SH3D_SAME_ITS, SH3D_SAME_RTOL = 8, 1e-6
+SH1D_CPU_STEPS = 30        # the CPU's share of the flat branch
+WAVE_TOL = 1e-9            # card against CPU
+BVP_TOL = 1e-9
+DUFFING_CPU_STEPS = 6
+# the Bratu fold by shooting: test_wave_bvp.py's M = 6 segments with 10
+# dopri5 steps each, not 80 (the fold moves by 1e-10; forward AD through
+# the flow costs an eighth), from lam = 3.4, not 0.5 (5 steps to the fold,
+# not 17)
+BRATU_SHOOTING = bk.BVPShooting(M=6, steps_per_segment=10)
+BRATU_SHOOTING_LAM0 = 3.4
+ZOO_BUDGET_S = 240         # the phases of section 4m together
+
+
+def shp_config(prob, max_steps):
+    """bench.py's accelerator configuration of cuda_analog
+    (bench.py:288-321)."""
+    ls = bk.IterativeRefinement(
+        inner=bk.GMRES(restart=16, maxiter=64, rtol=1e-4,
+                       precond=prob.spectral_precond),
+        refinements=4, rtol=1e-8)
+    eig = bk.LOBPCGEig(maxiter=8, tol=3e-3, extra=4,
+                       precond=lambda v: prob.spectral_precond(v, shift=1.0),
+                       compute_dtype=torch.float32)
+    cp = bk.ContinuationPar(
+        ds=-0.005, dsmax=0.007, dsmin=1e-6, p_min=-1.0, p_max=0.005,
+        max_steps=max_steps, nev=11, detect_bifurcation=3, detect_fold=True,
+        save_eigenvectors=False,
+        newton_options=bk.NewtonPar(tol=1e-6, max_iterations=15,
+                                    linsolver=ls, eigsolver=eig))
+    return ls, cp
+
+
+def _shp_launches():
+    """sh_jv's launches so far by closure, dtype and K."""
+    return {f"{c}/{d}/K={k}": n for (c, d, k), n in
+            sorted(sh_jv_mod.sh_jv.launches_by_case.items())}
+
+
+def _shp_checks(prob, u):
+    """At the Newton point of the 512x512 run: the kernel's periodic J.v
+    against `sh_jv_plain(closure="periodic")` at K = 1 and 15 in f64 and
+    f32, and the FFT preconditioner as the exact inverse of the linear
+    part.  The launches made here compare the kernel with its plain
+    version: the counts are put back as they were."""
+    saved = dict(sh_jv_mod.sh_jv.launches_by_case)
+    try:
+        return _shp_compare(prob, u)
+    finally:
+        sh_jv_mod.sh_jv.launches_by_case.clear()
+        sh_jv_mod.sh_jv.launches_by_case.update(saved)
+
+
+def _shp_compare(prob, u):
+    rng = np.random.default_rng(11)
+    hx2 = (2 * 16 * np.pi / SHP_N) ** 2          # the model's default box
+    hy2 = (2 * 4 * np.pi * 2 / np.sqrt(3) / SHP_N) ** 2
+    out = {}
+    for dtype in (torch.float64, torch.float32):
+        uu = u.to(dtype).contiguous()
+        scal = torch.tensor([-0.15, 1.3, 1 / hx2, 1 / hy2], dtype=dtype,
+                            device=u.device)
+        for K in (1, 15):
+            v = torch.as_tensor(rng.standard_normal((K,) + tuple(u.shape)),
+                                dtype=dtype, device=u.device)
+            vv = v if K > 1 else v[0]
+            got = sh_jv_mod.sh_jv(uu, vv, scal, closure="periodic")
+            torch.cuda.synchronize()
+            ref = sh_jv_mod.sh_jv_plain(uu, vv, scal, closure="periodic")
+            rel = float((got - ref).abs().max() / ref.abs().max())
+            out[f"{str(dtype).split('.')[-1]}/K={K}"] = rel
+            if not rel <= TOL[dtype]:
+                raise AssertionError(f"sh_periodic: the periodic kernel "
+                                     f"disagrees with its plain version: "
+                                     f"{rel} > {TOL[dtype]}")
+    v = torch.as_tensor(rng.standard_normal(tuple(u.shape)),
+                        device=u.device)
+    zero = {"l": torch.zeros((), dtype=u.dtype, device=u.device),
+            "nu": torch.zeros((), dtype=u.dtype, device=u.device)}
+    Lv = prob.F(v, zero) + v ** 3                # the linear part of F
+    inv_err = float((prob.spectral_precond(Lv - v, shift=1.0) - v)
+                    .abs().max())
+    if not inv_err <= 1e-10:
+        raise AssertionError(f"sh_periodic: the FFT preconditioner is not "
+                             f"the exact inverse: {inv_err}")
+    return out, inv_err
+
+
+def sh_periodic(card):
+    """bench.py's cuda_analog_steps_per_s at N = 512 on its accelerator
+    branch: Newton, 2 warm + 4 timed PALC steps with LOBPCG detection,
+    one profiled step; every J.v through sh_jv's periodic closure."""
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    prob = models.swift_hohenberg_periodic_2d(Nx=SHP_N, Ny=SHP_N)
+    ls, cp = shp_config(prob, SHP_WARM + SHP_TIMED + 2)
+    sol = bk.newton(prob, bk.NewtonPar(tol=SHP_NEWTON_TOL, max_iterations=25,
+                                       linsolver=ls))
+    torch.cuda.synchronize()
+    if not sol.converged:
+        raise AssertionError("Newton did not converge on the periodic SH2d")
+    newton_launches = _shp_launches()
+    phase("sh_periodic_newton", unknowns=SHP_N * SHP_N,
+          iterations=sol.itnewton, linear=sol.itlineartot,
+          residuals=[float(r) for r in sol.residuals[:sol.itnewton + 1]],
+          seconds=time.perf_counter() - t0, sh_jv=newton_launches)
+
+    it = ContIterable(prob.re_make(u0=sol.u), bk.PALC(), cp)
+    state = it.init_state()
+    res = bk.ContResult(prob=prob, contparams=cp)
+    it.save(res, state)
+    steps = []
+
+    def step(kind):
+        step0 = state.step
+        t = time.perf_counter()
+        it.iterate(state)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        if not (state.converged and state.step == step0 + 1):
+            raise AssertionError(f"sh_periodic step {state.step} failed or "
+                                 f"was retried")
+        it.save(res, state)
+        steps.append(dict(kind=kind, step=state.step, p=state.p,
+                          residual=float(state.res),
+                          n_unstable=state.n_unstable[0],
+                          itnewton=state.itnewton, itlinear=state.itlinear,
+                          seconds=dt))
+        phase("sh_periodic_palc", **steps[-1])
+
+    for _ in range(SHP_WARM):
+        step("warmup")
+    for _ in range(SHP_TIMED):
+        step("timed")
+    timed = [s for s in steps if s["kind"] == "timed"]
+    steps_per_s = SHP_TIMED / sum(s["seconds"] for s in timed)
+    path_launches = _shp_launches()
+    launches = sh_jv_mod.launch_count()
+    fields, _ = _profiled_step(it, state, "sh_jv",
+                               [s["seconds"] for s in timed])
+    it.save(res, state)
+    phase("sh_periodic_breakdown", **fields)
+    launches_all = sh_jv_mod.launch_count()
+    by_case = _shp_launches()
+    neumann = sum(n for k, n in by_case.items() if k.startswith("neumann"))
+    if launches <= 0 or neumann:
+        raise AssertionError(f"sh_periodic launched sh_jv {launches} times, "
+                             f"the Neumann closure {neumann} times")
+    ks = {(d, k) for (c, d, k) in sh_jv_mod.sh_jv.launches_by_case}
+    checks, inv_err = _shp_checks(prob, sol.u)
+    phase("sh_periodic", steps_per_s=steps_per_s,
+          warm_step_s=[s["seconds"] for s in timed],
+          itnewton=[s["itnewton"] for s in timed],
+          itlinear=[s["itlinear"] for s in timed],
+          sh_jv_launches=launches_all, sh_jv_launches_timed=launches,
+          sh_jv_by_case=by_case, sh_jv_by_case_before_profile=path_launches,
+          kernel_vs_plain=checks, precond_inverse_err=inv_err,
+          peak_mib=torch.cuda.max_memory_allocated() / 2 ** 20,
+          card=repr(card))
+    return dict(prob=prob, branch=res, launches=launches_all, ks=ks,
+                by_case=dict(sh_jv_mod.sh_jv.launches_by_case),
+                steps_per_s=steps_per_s)
+
+
+def _shp_sparse(u, l, N=SHP_SMALL, nu=1.3):
+    """test_sh_periodic.py's independent scipy.sparse assembly of the
+    periodic FD jacobian at (u, l)."""
+    import scipy.sparse as sp
+
+    lx, ly = 16 * np.pi, 4 * np.pi * 2 / np.sqrt(3)
+
+    def d2p(n, h2):
+        D = sp.diags([np.ones(n - 1), -2.0 * np.ones(n), np.ones(n - 1)],
+                     [-1, 0, 1]).tolil()
+        D[0, -1] = D[-1, 0] = 1.0
+        return (D / h2).tocsr()
+
+    L2 = (sp.kron(d2p(N, (2 * lx / N) ** 2), sp.eye(N))
+          + sp.kron(sp.eye(N), d2p(N, (2 * ly / N) ** 2)))
+    L1 = sp.eye(N * N) + L2
+    un = u.reshape(-1)
+    return ((-(L1 @ L1)) + sp.diags(l + 2 * nu * un - 3 * un * un)).tocsc()
+
+
+def shp_small_leg(device, steps=SHP_SMALL_STEPS):
+    """test_sh_periodic.py's continuation at N = 64: Newton, then PALC with
+    LOBPCG detection (f32 sweeps, f64 refine).  The corrector stops at
+    1e-9, not the test's 1e-7: the state on the full box at this width
+    has up to 64 unstable modes, and two runs that stop at 1e-7 on f32
+    Krylov iterates summed in another order differed by 4.5e-7 in p on
+    an H100 against the CPU, above the 1e-8 the comparison holds."""
+    prob = models.swift_hohenberg_periodic_2d(Nx=SHP_SMALL, Ny=SHP_SMALL,
+                                              device=device)
+    sol = bk.newton(prob, bk.NewtonPar(
+        tol=1e-10, max_iterations=30, linsolver=bk.GMRES(
+            restart=40, maxiter=300, rtol=1e-11,
+            precond=prob.spectral_precond)))
+    if not sol.converged:
+        raise AssertionError(f"periodic SH2d Newton on {device} failed")
+    ls = bk.IterativeRefinement(
+        inner=bk.GMRES(restart=40, maxiter=160, rtol=1e-5,
+                       precond=prob.spectral_precond),
+        refinements=4, rtol=1e-9)
+    eig = bk.LOBPCGEig(maxiter=30, tol=3e-3, extra=8,
+                       precond=lambda v: prob.spectral_precond(v, shift=1.0),
+                       compute_dtype=torch.float32)
+    cp = bk.ContinuationPar(
+        ds=-0.005, dsmax=0.007, dsmin=1e-6, p_min=-1.0, p_max=0.005,
+        max_steps=steps, nev=11, detect_bifurcation=3,
+        save_eigenvectors=False,
+        newton_options=bk.NewtonPar(tol=1e-9, max_iterations=15,
+                                    linsolver=ls, eigsolver=eig))
+    return sol, bk.continuation(prob.re_make(u0=sol.u), bk.PALC(), cp)
+
+
+def check_sh_periodic():
+    """The N = 64 leg on the card and on the CPU: p to 1e-8 with equal
+    stability counts; the card's last spectrum against ARPACK's
+    shift-invert on the scipy.sparse assembly."""
+    import scipy.sparse.linalg as spla
+
+    out = {}
+    for dev in ("cuda", "cpu"):
+        t = time.perf_counter()
+        sol, br = shp_small_leg(dev)
+        out[dev] = (sol, br, interop.branch_to_numpy(br),
+                    time.perf_counter() - t)
+    a, b = out["cuda"][2], out["cpu"][2]
+    dp = float(np.abs(a["p"] - b["p"]).max()) \
+        if len(a["p"]) == len(b["p"]) else float("inf")
+    same_n = bool(np.array_equal(a["n_unstable"], b["n_unstable"]))
+    du = float((out["cuda"][0].u.cpu() - out["cpu"][0].u).abs().max())
+    br = out["cuda"][1]
+    vals = np.sort(np.asarray(br.eig[-1]["eigenvals"]).real)[::-1]
+    x = br.sol[-1]["x"].detach().cpu().numpy()
+    ref = np.sort(spla.eigsh(_shp_sparse(x, float(br.sol[-1]["p"])), k=8,
+                             sigma=1.0, which="LM")[0])[::-1]
+    gap = float(np.abs(vals[:6] - ref[:6]).max())
+    phase("check_sh_periodic", N=SHP_SMALL, steps=len(a["p"]) - 1,
+          newton_gap=du, max_abs_dp=dp, same_n_unstable=same_n,
+          arpack_gap=gap, card_s=out["cuda"][3], cpu_s=out["cpu"][3])
+    if not (dp <= 1e-8 and same_n and du <= 1e-8 and gap <= ARPACK_ATOL):
+        raise AssertionError(f"periodic SH2d at N = {SHP_SMALL}: card "
+                             f"against CPU dp {dp}, counts {same_n}, Newton "
+                             f"{du}; ARPACK gap {gap}")
+
+
+def sh3d_config(prob, max_steps):
+    """examples/sh3d.py's accelerator branch."""
+    ls = bk.IterativeRefinement(
+        inner=bk.GMRES(restart=40, maxiter=160, rtol=1e-5,
+                       precond=prob.spectral_precond),
+        refinements=4, rtol=1e-10)
+    eig = bk.LOBPCGEig(maxiter=30, tol=3e-3, extra=8,
+                       precond=lambda v: prob.spectral_precond(v, shift=1.0),
+                       compute_dtype=torch.float32)
+    cp = bk.ContinuationPar(
+        ds=-0.001, dsmax=0.005, dsmin=1e-4, p_min=-0.1, p_max=0.15,
+        max_steps=max_steps, detect_bifurcation=3, nev=15, n_inversion=4,
+        newton_options=bk.NewtonPar(tol=1e-9, max_iterations=15,
+                                    linsolver=ls, eigsolver=eig))
+    return ls, cp
+
+
+def _sh3d_root(N, device, u0=None, tol=1e-9, max_iterations=80):
+    """Newton on SH3d at N with the example's f64 GMRES and its DCT
+    preconditioner, from `u0` (default the example's doubled guess)."""
+    prob = models.swift_hohenberg_3d(N=N, device=device)
+    u0 = prob.u0 * 2.0 if u0 is None else u0.to(prob.u0.device)
+    sol = bk.newton(prob.re_make(u0=u0), bk.NewtonPar(
+        tol=tol, max_iterations=max_iterations, linsolver=bk.GMRES(
+            restart=40, maxiter=200, rtol=1e-10,
+            precond=prob.spectral_precond)))
+    if not sol.converged:
+        raise AssertionError(f"SH3d Newton did not converge at N = {N} on "
+                             f"{device}")
+    return prob, sol
+
+
+def sh3d(card):
+    """examples/sh3d.py at N = 22 (10,648 unknowns) on its accelerator
+    branch, 8 steps; then Newton and the dense spectrum at N = 10 on the
+    card against the CPU.
+
+    The example's first Newton, from its doubled guess, wanders some 40-50
+    iterations through a delicate basin, and where it ends depends on the
+    rounding of every iterate: on the CPU the port and the JAX package
+    agree to 2e-12 after one iteration, the gap grows tenfold every few
+    iterations, and they reach different roots of the same F
+    (test_torch_sh3d.py).  So the card runs that Newton on its own, and
+    its residuals must follow the CPU's over the first SH3D_SAME_ITS
+    iterations to SH3D_SAME_RTOL; where it ends is printed, not checked.
+    The branch starts from the CPU's root perturbed by 1e-2 (seeded):
+    the card's Newton from there must meet the CPU's from the same start
+    to 1e-8.  At N = 10 both devices likewise start from one perturbed
+    root and must meet."""
+    t0 = time.perf_counter()
+    prob_cpu, sol_cpu = _sh3d_root(SH3D_N, "cpu")
+    t1 = time.perf_counter()
+    prob = models.swift_hohenberg_3d(N=SH3D_N)
+    ls_g = bk.GMRES(restart=40, maxiter=200, rtol=1e-10,
+                    precond=prob.spectral_precond)
+    own = bk.newton(prob.re_make(u0=prob.u0 * 2.0),
+                    bk.NewtonPar(tol=1e-9, max_iterations=80,
+                                 linsolver=ls_g))
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    res_card = [float(r) for r in own.residuals[:own.itnewton + 1]]
+    res_cpu = [float(r) for r in sol_cpu.residuals[:sol_cpu.itnewton + 1]]
+    follow = max(abs(a - b) / b for a, b in
+                 zip(res_card[:SH3D_SAME_ITS + 1], res_cpu))
+    phase("sh3d_doubled_guess", N=SH3D_N, cpu_its=sol_cpu.itnewton,
+          cpu_u_max=float(sol_cpu.u.abs().max()), cpu_s=t1 - t0,
+          card_converged=bool(own.converged), card_its=own.itnewton,
+          card_u_max=float(own.u.abs().max()), card_s=t2 - t1,
+          card_residuals=res_card, cpu_residuals=res_cpu,
+          residual_gap_first_its=follow, first_its=SH3D_SAME_ITS)
+    if not (len(res_card) > SH3D_SAME_ITS and follow <= SH3D_SAME_RTOL):
+        raise AssertionError(f"SH3d: the card's Newton from the doubled "
+                             f"guess leaves the CPU's within "
+                             f"{SH3D_SAME_ITS} iterations: {follow}")
+    start = sol_cpu.u + 1e-2 * torch.as_tensor(
+        np.random.default_rng(9).standard_normal(sol_cpu.u.shape))
+    _, sol_cpu2 = _sh3d_root(SH3D_N, "cpu", u0=start)
+    t3 = time.perf_counter()
+    prob, sol = _sh3d_root(SH3D_N, "cuda", u0=start)
+    torch.cuda.synchronize()
+    t4 = time.perf_counter()
+    root_gap = float((sol.u.cpu() - sol_cpu2.u).abs().max())
+    if not root_gap <= 1e-8:
+        raise AssertionError(f"SH3d: the card's root from the perturbed "
+                             f"start is {root_gap} from the CPU's")
+    ls, cp = sh3d_config(prob, SH3D_STEPS)
+    stamps = StepStamps()
+    br = bk.continuation(prob.re_make(u0=sol.u),
+                         bk.PALC(tangent=bk.Bordered()), cp,
+                         finalise_solution=stamps)
+    torch.cuda.synchronize()
+    t5 = time.perf_counter()
+    if not (stamps.all_converged() and len(br) == SH3D_STEPS + 1):
+        raise AssertionError(f"SH3d: steps {stamps.steps}, {len(br)} rows")
+    _, root = _sh3d_root(SH3D_SMALL, "cpu")
+    start = root.u + 1e-2 * torch.as_tensor(np.random.default_rng(8)
+                                            .standard_normal(root.u.shape))
+    small = {}
+    for dev in ("cuda", "cpu"):
+        p, s = _sh3d_root(SH3D_SMALL, dev, u0=start)
+        n = SH3D_SMALL ** 3
+        J = p.jac_op(s.u, p.params)(torch.eye(n, dtype=s.u.dtype,
+                                              device=s.u.device)
+                                    .reshape(n, *s.u.shape)).reshape(n, n)
+        small[dev] = (s.u.cpu(), torch.linalg.eigvalsh(J).cpu(), s.itnewton)
+    du = float((small["cuda"][0] - small["cpu"][0]).abs().max())
+    dl = float((small["cuda"][1] - small["cpu"][1]).abs().max())
+    phase("sh3d", N=SH3D_N, unknowns=SH3D_N ** 3,
+          perturbed_start_its=[sol.itnewton, sol_cpu2.itnewton],
+          card_newton_s=t4 - t3, root_gap=root_gap,
+          u_max=float(sol.u.abs().max()), steps=len(br) - 1,
+          branch_s=t5 - t4, steps_per_s=(len(br) - 1) / (t5 - t4),
+          p=[float(x) for x in br.param],
+          n_unstable=[int(x) for x in br.n_unstable],
+          special=[(sp.type, float(sp.param)) for sp in br.specialpoint],
+          small_N=SH3D_SMALL,
+          small_newton_its=[small[d][2] for d in ("cuda", "cpu")],
+          small_newton_gap=du, small_eig_gap=dl,
+          small_s=time.perf_counter() - t5)
+    if not (du <= 1e-8 and dl <= 1e-8):
+        raise AssertionError(f"SH3d at N = {SH3D_SMALL}: card against CPU "
+                             f"Newton {du}, eigenvalues {dl}")
+
+
+def sh1d_thresholds(n=200, l_dom=6.0):
+    """The flat branch's exact bifurcations (1 + mu_k)^2 < 1, mu_k the
+    Dirichlet second difference's eigenvalues (test_sh1d_snaking.py)."""
+    h = 2 * l_dom / n
+    mu = -(4 / h ** 2) * np.sin(np.arange(1, n + 1) * np.pi
+                                / (2 * (n + 1))) ** 2
+    lam = np.sort((1 + mu) ** 2)
+    return lam[lam < 1.0]
+
+
+def sh1d_leg(device, max_steps=120):
+    """examples/shpde_snaking.py's flat branch (test_sh1d_snaking.py's
+    fixture)."""
+    prob = models.swift_hohenberg_1d(device=device)
+    cp = bk.ContinuationPar(ds=0.01, dsmax=0.01, dsmin=1e-4, p_min=-1.0,
+                            p_max=1.0, max_steps=max_steps,
+                            detect_bifurcation=3, nev=20, n_inversion=4,
+                            newton_options=bk.NewtonPar(tol=1e-8,
+                                                        max_iterations=30))
+    return bk.continuation(prob, bk.PALC(), cp)
+
+
+def sh1d_snaking():
+    """The whole flat branch at n = 200 on the card: its five bifurcations
+    at the exact thresholds to 2e-3 (test_sh1d_snaking.py); its first
+    SH1D_CPU_STEPS steps on the CPU: p to 1e-9, the same types."""
+    t = time.perf_counter()
+    br = sh1d_leg("cuda")
+    card_s = time.perf_counter() - t
+    t = time.perf_counter()
+    br_cpu = sh1d_leg("cpu", SH1D_CPU_STEPS)
+    cpu_s = time.perf_counter() - t
+    bps = sorted(float(sp.param) for sp in br.specialpoint
+                 if sp.type == "bp")
+    gold = sh1d_thresholds()
+    gap = float(np.abs(np.asarray(bps) - gold).max()) \
+        if len(bps) == len(gold) else float("inf")
+    a, b = interop.branch_to_numpy(br), interop.branch_to_numpy(br_cpu)
+    k = len(b["p"])
+    dp = float(np.abs(a["p"][:k] - b["p"]).max())
+    cut = [(str(t_), float(p)) for t_, p in zip(a["sp_type"], a["sp_p"])
+           if p <= b["p"][-1] and t_ != "endpoint"]
+    ref = [(str(t_), float(p)) for t_, p in zip(b["sp_type"], b["sp_p"])
+           if t_ != "endpoint"]
+    same = [t_ for t_, _ in cut] == [t_ for t_, _ in ref] and all(
+        abs(x[1] - y[1]) <= 1e-9 for x, y in zip(cut, ref))
+    phase("sh1d_snaking", n=200, steps=len(br) - 1, bps=bps,
+          threshold_gap=gap, card_s=card_s, cpu_steps=k - 1, cpu_s=cpu_s,
+          max_abs_dp=dp, same_special=same, special_cpu=ref)
+    if not (gap <= 2e-3 and dp <= 1e-9 and same):
+        raise AssertionError(f"sh1d: thresholds {gap}, card against CPU "
+                             f"dp {dp}, special points {same}")
+    return br
+
+
+def wave_leg(device):
+    """The Nagumo front at n = 256 and the two-generator cGL pulse at
+    n = 128 (mu = 0, 0.1, 0.2) of test_wave_bvp.py."""
+    dev = torch.device(device)
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a), dtype=torch.float64,
+                               device=dev)
+
+    F, ddx, u_exact, c = nagumo(torch)
+    prob = bk.BifurcationProblem(F, u0=t(u_exact), params={"a": t(0.25)},
+                                 lens="a")
+    tw = bk.travelling_wave_problem(prob, ddx, speeds0=[-c])
+    front = bk.newton(tw, bk.NewtonPar(tol=1e-8, max_iterations=30))
+    F, T1, T2, a = cgl_pulse(torch, torch.roll)
+    n = a.shape[0]
+    uk, sk = np.stack([a, np.zeros(n)]), np.array([0.0, -1.0])
+    pulses = []
+    for mu in (0.0, 0.1, 0.2):
+        par = {"r": t(-0.1), "nu": t(1.0), "mu": t(mu)}
+        p = bk.BifurcationProblem(F, u0=torch.zeros((2, n), dtype=torch.float64,
+                                                    device=dev),
+                                  params=par, lens="r")
+        twc = bk.travelling_wave_problem(p, (T1, T2), u0=t(uk),
+                                         speeds0=t(sk))
+        s = bk.newton(twc, bk.NewtonPar(tol=1e-10, max_iterations=50))
+        pulses.append((s, twc))
+        X = s.u.cpu().numpy()
+        uk, sk = X[:2 * n].reshape(2, n), X[-2:]
+    return dict(front=front, c=c, pulses=pulses, a=a)
+
+
+def wave():
+    """Gold values of test_wave_bvp.py on the card, card against CPU to
+    1e-9."""
+    legs, secs = {}, {}
+    for dev in ("cuda", "cpu"):
+        t = time.perf_counter()
+        legs[dev] = wave_leg(dev)
+        secs[dev] = time.perf_counter() - t
+    g, cpu = legs["cuda"], legs["cpu"]
+    sols = [g["front"]] + [s for s, _ in g["pulses"]]
+    if not all(s.converged for s in sols):
+        raise AssertionError("a wave Newton did not converge on the card")
+    X = g["front"].u.cpu().numpy()
+    speed_gap = abs(X[-1] + g["c"])
+    far = max(abs(X[0]), abs(X[-2] - 1.0))
+    n = g["a"].shape[0]
+    X0 = g["pulses"][0][0].u.cpu().numpy()
+    X2, tw2 = g["pulses"][2][0].u, g["pulses"][2][1]
+    w = np.sort(np.abs(np.linalg.eigvals(
+        tw2.eig_jacobian(X2, tw2.params).cpu().numpy())))
+    X2 = X2.cpu().numpy()
+    gap = max(float((a.u.cpu() - b.u).abs().max()) for a, b in zip(
+        sols, [cpu["front"]] + [s for s, _ in cpu["pulses"]]))
+    phase("wave", front_speed=float(X[-1]), speed_gap=speed_gap,
+          far_field_gap=far, pulse_speeds_mu0=X0[-2:].tolist(),
+          pulse_speeds_mu02=X2[-2:].tolist(), zero_modes=w[:3].tolist(),
+          card_vs_cpu=gap, card_s=secs["cuda"], cpu_s=secs["cpu"])
+    if not (speed_gap < 2e-4 and far < 1e-2 and abs(X0[-2]) < 1e-10
+            and abs(X0[-1] + 1.0) < 1e-10
+            and abs(np.abs(X0[:n]).max() - g["a"].max()) < 1e-3
+            and abs(X2[-2]) < 1e-10 and -1.0 < X2[-1] < -0.9
+            and w[0] < 1e-8 and w[1] < 1e-8 and w[2] > 0.05
+            and gap <= WAVE_TOL):
+        raise AssertionError("wave: a gold value or the CPU's root missed")
+
+
+def _bratu_prob(device, disc, lam=0.5):
+    model = bratu(bk, torch)
+    X0 = bk.discretize(model, disc, lambda t: np.array([
+        0.1 * t * (1 - t), 0.1 * (1 - 2 * t)]), 2, device=device)
+    return bk.bvp_problem(model, disc, X0, {"lam": torch.tensor(
+        lam, dtype=torch.float64, device=device)}, "lam", n=2)
+
+
+def bratu_fold_leg(device, disc, lam0=0.5):
+    """test_wave_bvp.py::test_bratu_fold: the branch from lam0 (the
+    test's 0.5) to its fold, stopped at the step that detects it, refined
+    by `newton_fold`."""
+    prob = _bratu_prob(device, disc, lam0)
+    sol = bk.newton(prob, bk.NewtonPar(tol=1e-10))
+    cp = bk.ContinuationPar(ds=0.05, dsmax=0.2, dsmin=1e-5, p_min=0.01,
+                            p_max=4.0, max_steps=120, detect_bifurcation=0,
+                            detect_fold=True,
+                            newton_options=bk.NewtonPar(tol=1e-9))
+
+    def past_fold(z, tau, step, res, **kw):
+        return not any(sp.type == "fold" for sp in res.specialpoint)
+
+    br = bk.continuation(prob.re_make(u0=sol.u), bk.PALC(), cp,
+                         finalise_solution=past_fold)
+    idx = next(i for i, sp in enumerate(br.specialpoint)
+               if sp.type == "fold")
+    solf = bk.newton_fold(br, idx)
+    return br, solf
+
+
+def _two_folds(z, tau, step, res, **kw):
+    """finalise hook: stop once the branch has met two folds."""
+    return sum(sp.type == "fold" for sp in res.specialpoint) < 2
+
+
+def duffing_leg(device, max_steps=400):
+    """test_bvp_oscillator.py's resonance curve, Ntst = 40, m = 5, to its
+    second fold: the branch meets the 0.7416 fold first and the 2.4608
+    one after turning (dsmax 0.1, not the test's 0.05: the same folds to
+    1e-5 in 154 steps, not 300, on the CPU)."""
+    model = duffing(bk, torch)
+    disc = bk.BVPCollocation(Ntst=40, m=5)
+    X0 = bk.discretize(model, disc, lambda t: np.array([0.0, 0.0, t]),
+                       3, device=device)
+    prob = bk.bvp_problem(model, disc, X0, {"lam": torch.tensor(
+        3.0, dtype=torch.float64, device=device)}, "lam", n=3)
+    sol = bk.newton(prob, bk.NewtonPar(tol=1e-10, max_iterations=30))
+    cp = bk.ContinuationPar(ds=-0.01, dsmax=0.1, dsmin=1e-5, p_min=0.5,
+                            p_max=10.05, max_steps=max_steps,
+                            detect_bifurcation=0, detect_fold=True,
+                            newton_options=bk.NewtonPar(tol=1e-10,
+                                                        max_iterations=20))
+    return bk.continuation(prob.re_make(u0=sol.u), bk.PALC(), cp,
+                           finalise_solution=_two_folds)
+
+
+def bvp():
+    """The Duffing resonance curve on the card (its primary folds within
+    2e-2 of 0.7416 and 2.4608, t(1) = 1 to 1e-8), its first steps on the
+    CPU; the Bratu fold by collocation and by shooting refined by
+    `newton_fold` within 5e-5 of 3.513830719, card against CPU; the COP
+    solve against the dense one."""
+    out = {}
+    t = time.perf_counter()
+    br = duffing_leg("cuda")
+    out["duffing_s"] = time.perf_counter() - t
+    folds = sorted(float(sp.param) for sp in br.specialpoint
+                   if sp.type == "fold")
+    u = br.get_solx(0).reshape(-1, 3)
+    t1_gap = abs(float(u[-1, 2]) - 1.0)
+    cpu = interop.branch_to_numpy(duffing_leg("cpu", DUFFING_CPU_STEPS))
+    duff_dp = float(np.abs(interop.branch_to_numpy(br)["p"][:len(cpu["p"])]
+                           - cpu["p"]).max())
+    ok = (len(folds) >= 2 and abs(folds[-1] - 2.4608) < 2e-2
+          and abs(folds[0] - 0.7416) < 2e-2 and t1_gap < 1e-8
+          and duff_dp <= BVP_TOL)
+    # the fold by collocation on the card and the CPU, by shooting on the
+    # card (on the CPU its nested forward AD through the flow takes
+    # minutes), with the shooting Newton at lam = 1 card against CPU
+    fold_vals = {}
+    for name, disc, lam0, devs in (
+            ("collocation", bk.BVPCollocation(Ntst=15, m=4), 0.5,
+             ("cuda", "cpu")),
+            ("shooting", BRATU_SHOOTING, BRATU_SHOOTING_LAM0, ("cuda",))):
+        vals = []
+        for dev in devs:
+            t = time.perf_counter()
+            brb, solf = bratu_fold_leg(dev, disc, lam0)
+            if not solf.converged:
+                raise AssertionError(f"newton_fold on Bratu ({name}, {dev})")
+            vals.append(float(solf.u[-1]))
+            out[f"bratu_{name}_{dev}_s"] = time.perf_counter() - t
+        fold_vals[name] = vals
+        ok = ok and abs(vals[0] - BRATU_FOLD) < 5e-5 \
+            and abs(vals[0] - vals[-1]) <= BVP_TOL
+    roots = [bk.newton(_bratu_prob(dev, BRATU_SHOOTING, 1.0),
+                       bk.NewtonPar(tol=1e-10)) for dev in ("cuda", "cpu")]
+    shoot_gap = float((roots[0].u.cpu() - roots[1].u).abs().max())
+    ok = ok and all(r.converged for r in roots) and shoot_gap <= BVP_TOL
+    # the condensed solve against the dense one, on the card
+    prob = _bratu_prob("cuda", bk.BVPCollocation(Ntst=12, m=4), lam=1.0)
+    from bifurcationkit.jl_tpu_torch.bvp import (bvp_block_jacobian,
+                                                 bvp_cop_solve)
+    disc, X = bk.BVPCollocation(Ntst=12, m=4), prob.u0
+    blocks = bvp_block_jacobian(disc, bratu(bk, torch), X, prob.params, 2)
+    J = prob.jacobian(X, prob.params)
+    rhs = torch.as_tensor(np.random.default_rng(3).standard_normal(
+        X.shape[0]), device=X.device)
+    ref = torch.linalg.solve(J, rhs)
+    cop_gap = float((bvp_cop_solve(blocks, rhs) - ref).abs().max()
+                    / ref.abs().max())
+    ok = ok and cop_gap <= 1e-10
+    phase("bvp", duffing_steps=len(br) - 1, duffing_folds=folds,
+          t1_gap=t1_gap, duffing_cpu_steps=len(cpu["p"]) - 1,
+          duffing_max_abs_dp=duff_dp, bratu_folds=fold_vals,
+          shooting_newton_gap=shoot_gap, cop_vs_dense=cop_gap, **out)
+    if not ok:
+        raise AssertionError("bvp: a gold value or the CPU's result missed")
+
+
+def io_native(shp_branch, sh1d_branch):
+    """Branches saved and loaded back (the 512x512 periodic run's table
+    and spectra, the SH1d branch with its special points and solutions),
+    a BranchLog round trip, and the host converters of the compiled
+    library."""
+    import tempfile
+
+    from bifurcationkit.jl_tpu_torch import native
+
+    if not native.loaded():
+        raise AssertionError("the port's native library did not build")
+    out = {}
+    os.makedirs(OUT_DIR, exist_ok=True)   # a fresh checkout has none yet
+    with tempfile.TemporaryDirectory(dir=OUT_DIR) as d:
+        for name, br in (("sh_periodic", shp_branch), ("sh1d", sh1d_branch)):
+            path = bk.save_branch(br, os.path.join(d, name))
+            back = bk.load_branch(path)
+            same = (np.array_equal(back.param, br.param)
+                    and [(s.type, s.param) for s in back.specialpoint]
+                    == [(s.type, float(s.param)) for s in br.specialpoint]
+                    and len(back.eig) == len(br.eig)
+                    and all(np.array_equal(a["eigenvals"], b["eigenvals"])
+                            for a, b in zip(back.eig, br.eig))
+                    and all(torch.equal(a["x"], b["x"]) for a, b in
+                            zip(back.sol, br.sol)))
+            out[name] = dict(rows=len(back), special=len(back.specialpoint),
+                             sols=len(back.sol), same=same,
+                             mib=os.path.getsize(path) / 2 ** 20)
+        log = native.BranchLog(os.path.join(d, "log.bin"), 4)
+        rows = np.random.default_rng(4).standard_normal((5, 4))
+        for i, r in enumerate(rows):
+            log.append(i, r)
+        log.close()
+        steps, vals = native.BranchLog.read(os.path.join(d, "log.bin"), 4)
+        log_ok = np.array_equal(steps, np.arange(5)) and \
+            np.array_equal(vals, rows)
+    import scipy.sparse as sp
+
+    S = sp.diags([1.0, -2.0, 1.0, 0.5], [-1, 0, 1, 64],
+                 shape=(4096, 4096)).tocsr()
+    data, offs = native.csr_to_dia_arrays(S.indptr, S.indices, S.data)
+    ell, cols = native.csr_to_ell_arrays(S.indptr, S.indices, S.data)
+    conv_ok = offs == (-1, 0, 1, 64) and ell.shape == (4096, 4) and \
+        float(np.abs(data[1] + 2.0).max()) == 0.0
+    phase("io_native", library=os.path.basename(str(
+        native.library_path())), branches=out, branch_log=log_ok,
+        converters=conv_ok)
+    if not (all(v["same"] for v in out.values()) and log_ok and conv_ok):
+        raise AssertionError("io_native: a round trip or a converter "
+                             "failed")
+
+
+# ---------------------------------------------------------------------------
 # 6. timing
 # ---------------------------------------------------------------------------
 
@@ -3556,15 +4318,51 @@ def _host_time(fn, reps):
 
 
 def _device_time(fn, name="", calls=100):
-    """Milliseconds per call of fn on the card alone (torch.profiler): the
-    summed time of the kernels whose name holds `name`, over `calls`
-    calls."""
-    for _ in range(3):          # the profiler now and then records no kernel
+    """Milliseconds per call of fn on the card alone (torch.profiler), over
+    the kernels whose name holds `name`: for each, the mean of its
+    recorded events times the events a call launches (its count over
+    `calls`, rounded).  The H100's profiler drops a few kernel events of
+    a profile (mostly 7 or 8, now and then up to all of them), so a sum
+    over `calls` calls reads low; the mean over the events it kept does
+    not.  A kernel whose count lies more than 10 % from a whole multiple
+    of `calls` is retried, and after three such profiles the time is
+    "not measured"."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
         rows, _ = _profile(lambda: [fn() for _ in range(calls)])
-        mine = [r for r in rows if name in r[0]]
-        if mine:
-            return sum(r[1] for r in mine) / 1e3 / calls
+        per = [(us, c, round(c / calls)) for n, us, c in rows if name in n]
+        if per and all(k >= 1 and abs(c - k * calls) <= 0.1 * k * calls
+                       for _, c, k in per):
+            return sum(us / c * k for us, c, k in per) / 1e3
+        phase("device_time_retry", kernel=name or "all", calls=calls,
+              recorded=sum(c for _, c, _ in per))
     return "not measured"
+
+
+def _graph_time(fn, calls=50, reps=10):
+    """Milliseconds per call of fn on the card without the profiler:
+    `calls` calls captured in one CUDA graph, its replays timed by two
+    CUDA events.  The graph launches its kernels from the card, back to
+    back, so a kernel longer than the graph's own gap between kernels
+    reads its device time plus that gap."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(calls):
+            fn()
+    g.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        g.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (reps * calls)
 
 
 def _cold_copies(nbytes):
@@ -3605,28 +4403,39 @@ def device_floor():
     launch takes on this card, and the floor of every device time below."""
     one = torch.zeros(1, device="cuda")
     floor = dict(launch_floor_ms=_time(lambda: one.add_(0), 2000),
-                 device_floor_ms=_device_time(lambda: one.add_(0)))
+                 device_floor_ms=_device_time(lambda: one.add_(0)),
+                 graph_floor_ms=_graph_time(lambda: one.add_(0)))
     phase("device_floor", clocks=smi_line(CLOCKS), **floor)
     return floor
 
 
-def time_kernel(floor):
+F32_64 = (torch.float32, torch.float64)
+# (shape, K, dtypes) of each closure's timing rows: the flagship's and the
+# periodic SH2d path's shapes
+SH_TIMING = [((151, 100), 1, F32_64), ((151, 100), 60, F32_64),
+             ((1024, 1024), 1, F32_64)]
+SHP_TIMING = [((SHP_N, SHP_N), 1, F32_64),
+              ((SHP_N, SHP_N), 15, (torch.float32,))]
+
+
+def time_kernel(floor, rows=SH_TIMING, closure="neumann"):
     cases = []
-    for shape, K in (((151, 100), 1), ((151, 100), 60), ((1024, 1024), 1)):
-        for dtype in (torch.float32, torch.float64):
+    for shape, K, dtypes in rows:
+        for dtype in dtypes:
             u, v, scal = _inputs(shape, K, dtype, seed=7)
             vv = v if K > 1 else v[0]
-            op = sh_jv_mod.sh_jv_operator(u, scal)     # the jac_op route
+            # the jac_op route
+            op = sh_jv_mod.sh_jv_operator(u, scal, closure)
             reps = 2000 if shape == (151, 100) and K == 1 else 300
 
             def kern():
-                return sh_jv_mod.sh_jv(u, vv, scal)
+                return sh_jv_mod.sh_jv(u, vv, scal, closure)
 
             def oper():
                 return op(vv)
 
             def plain():
-                return sh_jv_mod.sh_jv_plain(u, vv, scal)
+                return sh_jv_mod.sh_jv_plain(u, vv, scal, closure)
 
             # in turns: kernel, operator, plain, then again
             tk1, to1, tp1 = _time(kern, reps), _time(oper, reps), \
@@ -3634,12 +4443,13 @@ def time_kernel(floor):
             tk2, to2, tp2 = _time(kern, reps), _time(oper, reps), \
                 _time(plain, reps)
             N, M = shape
-            case = dict(dtype=str(dtype).split(".")[-1],
+            case = dict(closure=closure, dtype=str(dtype).split(".")[-1],
                         shape=f"{N}x{M}", K=K, ms=(tk1 + tk2) / 2,
                         operator_ms=(to1 + to2) / 2,
                         host_ms=_host_time(kern, reps),
                         operator_host_ms=_host_time(oper, reps),
                         device_ms=_device_time(kern, "sh_jv_kernel"),
+                        graph_ms=_graph_time(kern),
                         plain_ms=(tp1 + tp2) / 2,
                         plain_device_ms=_device_time(plain),
                         **_bound(sh_jv_mod.sh_jv_bytes(N, M, K,
@@ -3654,10 +4464,12 @@ def time_kernel(floor):
                 for c in range(copies):
                     uc, vc, sc = _inputs(shape, K, dtype, seed=100 + c)
                     calls.append(functools.partial(
-                        sh_jv_mod.sh_jv, uc, vc if K > 1 else vc[0], sc))
+                        sh_jv_mod.sh_jv, uc, vc if K > 1 else vc[0], sc,
+                        closure))
                 case.update(cold_copies=copies, device_cold_ms=_device_time(
-                    _in_turn(calls), "sh_jv_kernel"))
-            if K == 1 and shape == (151, 100):
+                    _in_turn(calls), "sh_jv_kernel"),
+                    graph_cold_ms=_graph_time(_in_turn(calls)))
+            if K == 1 and shape == (151, 100) and closure == "neumann":
                 fn = sh_jv_mod._entry(dtype)
                 out = torch.empty_like(vv)
                 args = (u.data_ptr(), vv.data_ptr(), scal.data_ptr(),
@@ -3725,6 +4537,7 @@ def time_dia(floor):
                         offsets=list(offsets), K=K, ms=(tk1 + tk2) / 2,
                         host_ms=_host_time(kern, reps),
                         device_ms=_device_time(kern, "dia_spmv_kernel"),
+                        graph_ms=_graph_time(kern),
                         plain_ms=(tp1 + tp2) / 2,
                         plain_device_ms=_device_time(plain),
                         library_ms=(tl1 + tl2) / 2,
@@ -3749,6 +4562,7 @@ def time_dia(floor):
                                                   vc))
                 case.update(cold_copies=copies, device_cold_ms=_device_time(
                     _in_turn(kerns), "dia_spmv_kernel"),
+                    graph_cold_ms=_graph_time(_in_turn(kerns)),
                     library_device_cold_ms=_device_time(_in_turn(libs)))
             if n == 2 * BRUSS_SITES:
                 fn, out = dia_entry(dtype), torch.empty_like(v)
@@ -3765,6 +4579,44 @@ def time_dia(floor):
 
 
 WALL_S = {}
+ZOO_PHASES = ("sh_periodic", "check_sh_periodic", "sh3d", "sh1d_snaking",
+                  "wave", "bvp", "io_native")
+
+
+def zoo(card, periodic_cases):
+    """The phases of section 4m, each with the launch counts reset just
+    before it and read just after; the periodic SH2d must launch sh_jv
+    only at (dtype, K) that compare_periodic checks.  Returns the
+    sh_periodic results and the launches of each kernel by phase."""
+    by_phase = {"sh_jv": {}, "dia_spmv": {}}
+
+    def run(name, fn, *args):
+        reset_launches()
+        out = walled(name, fn, *args)
+        by_phase["sh_jv"][name] = sh_jv_mod.launch_count()
+        by_phase["dia_spmv"][name] = dia_spmv.launches
+        return out
+
+    shp = run("sh_periodic", sh_periodic, card)
+    unchecked = sorted(shp["ks"] - periodic_cases)
+    if unchecked:
+        raise AssertionError(f"sh_periodic launched sh_jv at {unchecked}, "
+                             f"which no compare_periodic case checks")
+    run("check_sh_periodic", check_sh_periodic)
+    run("sh3d", sh3d, card)
+    br1 = run("sh1d_snaking", sh1d_snaking)
+    run("wave", wave)
+    run("bvp", bvp)
+    run("io_native", io_native, shp["branch"], br1)
+    quiet = {k: v for k, v in by_phase["sh_jv"].items()
+             if k not in ("sh_periodic", "check_sh_periodic") and v}
+    if quiet or any(by_phase["dia_spmv"].values()):
+        raise AssertionError(f"a phase of section 4m launched a kernel it "
+                             f"does not use: {by_phase}")
+    secs = sum(WALL_S[k] for k in ZOO_PHASES)
+    phase("zoo_budget", seconds=secs, budget_s=ZOO_BUDGET_S,
+          within_budget=secs <= ZOO_BUDGET_S)
+    return shp, by_phase
 
 
 def walled(name, fn, *args):
@@ -3782,6 +4634,8 @@ def main():
     card = check_device()
     walled("build", build)
     max_abs_err, compared_ks = walled("compare", compare_kernel)
+    periodic_abs_err, periodic_cases = walled("compare_periodic",
+                                              compare_periodic)
     dia_abs_err = walled("compare_dia", compare_dia)
     prob, ls, br, state, launches, by_batch, steps_per_s = walled(
         "main_path", main_path, card)
@@ -3836,8 +4690,13 @@ def main():
     po2_s = WALL_S["po_bvam"] + WALL_S["check_small_po_codim2"]
     phase("po_codim2_budget", seconds=po2_s, budget_s=BVAM_BUDGET_S,
           within_budget=po2_s <= BVAM_BUDGET_S)
+    shp, zoo_phases = zoo(card, periodic_cases)
+    sh_phases["sh_periodic"] = zoo_phases["sh_jv"]["sh_periodic"]
+    launches = sum(sh_phases.values())
     floor = device_floor()
     cases = walled("time_kernel", time_kernel, floor)
+    periodic_timing = walled("time_periodic", time_kernel, floor,
+                             SHP_TIMING, "periodic")
     dia_cases = walled("time_dia", time_dia, floor)
     phase("clocks_after_timing", clocks=smi_line(CLOCKS))
     phase("wall", seconds=WALL_S, total_s=time.perf_counter() - t0)
@@ -3864,13 +4723,22 @@ def main():
         "device_floor_ms": floor["device_floor_ms"],
         "launches_by_batch": by_batch,
         # the periodic-orbit and codim-2 PDE paths launch no sh_jv
-        # (checked)
+        # (checked); of the phases of section 4m, sh_periodic (the
+        # periodic closure) and its check do
         "launches_by_phase": {**sh_phases, "po_cgl": po_launches["sh_jv"],
                               "po_bruss": pob_launches["sh_jv"],
                               "po_bruss_shooting": posh_launches["sh_jv"],
                               "codim2_bt_pde": 0, "codim2_zh_pde": 0,
-                              "po_bvam": 0},
+                              "po_bvam": 0, **zoo_phases["sh_jv"]},
         "cases": cases,
+        "periodic": {
+            "entry_points": ["sh_jv_periodic_f32", "sh_jv_periodic_f64"],
+            "max_abs_err": periodic_abs_err,
+            "sh_periodic_launches_by_case": {
+                f"{d}/K={k}": n for (c, d, k), n in sorted(
+                    shp["by_case"].items())},
+            "steps_per_s": shp["steps_per_s"],
+            "cases": periodic_timing},
     }, {
         "name": "dia_spmv", "route": "cuda",
         "source": "bifurcationkit/jl_tpu_torch/csrc/dia_spmv.cu",
@@ -3888,7 +4756,8 @@ def main():
         # (checked)
         "launches_by_phase": {**dia_phases,
                               "po_cgl": po_launches["dia_spmv"],
-                              "po_bruss": pob_launches["dia_spmv"]},
+                              "po_bruss": pob_launches["dia_spmv"],
+                              **zoo_phases["dia_spmv"]},
         "po_bvam_launches_by_rows": dict(sorted(bvam_rows.items())),
         "cases": dia_cases,
     }]

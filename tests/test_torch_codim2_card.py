@@ -85,9 +85,9 @@ def test_fold_functional_through_sh_jv_equals_plain(cuda_device):
         mp = minaug_mf.fold_ma_problem_mf(p, "l", "nu", gmres_opts=GMRES_OPTS,
                                           precond=prob.spectral_precond)
         par = {**mp.params, "_a": a, "_b": b}
-        sh_jv_mod.sh_jv.launches = 0
+        sh_jv_mod.sh_jv.launches_by_case.clear()
         out[name] = (mp.F(X, par), mp.jac_op(X, par)(d), mp.dFdp(X, par))
-        launched = sh_jv_mod.sh_jv.launches
+        launched = sh_jv_mod.launch_count()
         assert (launched > 0) == (name == "kernel"), (name, launched)
     for k, (o, r) in enumerate(zip(out["kernel"], out["plain"])):
         assert _rel(o, r) < TOL, (k, _rel(o, r))

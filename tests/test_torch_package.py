@@ -55,9 +55,16 @@ PERIODIC = (
     "bp_po_branch_switch", "pd_branch_switch", "po_codim2_test_values",
     "get_normal_form_po", "neimark_sacker_iooss", "period_doubling_iooss",
     "poincare_return_map", "cop_solve", "cop_solve_bordered")
+# the wave, BVP, I/O and plotting surface
+WAVE_BVP_UTILS = (
+    "BVPCollocation", "BVPModel", "BVPShooting", "BVPTrapezoid",
+    "bvp_problem", "discretize", "travelling_wave_problem", "load_branch",
+    "save_branch", "save_every_step", "resume_data", "plot_branch",
+    "plot_bifurcation_diagram", "plot_periodic_orbit", "savefig")
 
 
-@pytest.mark.parametrize("name", EVENTS_AND_ALIASES + CODIM2 + PERIODIC)
+@pytest.mark.parametrize("name", EVENTS_AND_ALIASES + CODIM2 + PERIODIC
+                         + WAVE_BVP_UTILS)
 def test_public_names(name):
     """Each name is exported at the top level; the codim-2 ones are the
     same objects as in `codim2` (`normal_forms` for the Bautin form), the
@@ -74,6 +81,32 @@ def test_public_names(name):
         assert getattr(periodic, name) is obj
     if name in ("ODEBifProblem", "PDEBifProblem"):
         assert obj is bt.BifurcationProblem
+    if name in WAVE_BVP_UTILS:
+        from bifurcationkit.jl_tpu_torch import bvp, utils, wave
+
+        assert any(getattr(home, name, None) is obj
+                   for home in (bvp, utils, wave))
+
+
+def _public(mod):
+    """A package's exported names: its public attributes that are not
+    submodules, and its lazily loaded submodules."""
+    import types
+
+    return ({n for n, v in vars(mod).items() if not n.startswith("_")
+             and not isinstance(v, types.ModuleType)}
+            | set(getattr(mod, "_LAZY_SUBMODULES", ())))
+
+
+def test_export_sets_cover_the_jax_package():
+    """Every top-level name and every `models` name of the JAX package is
+    exported by the port, except `parallel/` (ROADMAP Queue A item 17)."""
+    import bifurcationkit.jl_tpu as bj
+    from bifurcationkit.jl_tpu import models as jmodels
+    import bifurcationkit.jl_tpu_torch as bt
+
+    assert _public(bj) - _public(bt) - {"parallel"} == set()
+    assert _public(jmodels) - _public(tmodels) == set()
 
 
 def test_entry_point_needs_the_card_unless_told(monkeypatch):

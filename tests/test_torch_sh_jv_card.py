@@ -57,20 +57,20 @@ def _rel(out, ref):
 @pytest.mark.parametrize("shape,K", CASES)
 def test_kernel_matches_plain_on_card(cuda_device, shape, K, dtype):
     u, v, scal = _inputs(shape, K, dtype, cuda_device)
-    before = sh_jv_mod.sh_jv.launches
+    before = sh_jv_mod.launch_count()
     out = sh_jv_mod.sh_jv(u, v, scal)
     torch.cuda.synchronize()
-    assert sh_jv_mod.sh_jv.launches == before + 1
+    assert sh_jv_mod.launch_count() == before + 1
     ref = sh_jv_mod.sh_jv_plain(u, v, scal)
     assert _rel(out, ref) < RTOL[dtype]
     # an unbatched field, and the operator the SH model's jac_op uses
     one = sh_jv_mod.sh_jv(u, v[0], scal)
     assert _rel(one, ref[0]) < RTOL[dtype]
     op = sh_jv_mod.sh_jv_operator(u, scal)
-    by_batch = dict(sh_jv_mod.sh_jv.launches_by_batch)
+    by_batch = sh_jv_mod.launches_by_batch()
     assert torch.equal(op(v), out) and torch.equal(op(v[0]), one)
-    assert sh_jv_mod.sh_jv.launches == before + 4
-    assert sh_jv_mod.sh_jv.launches_by_batch[K] == by_batch[K] + 1 + (K == 1)
+    assert sh_jv_mod.launch_count() == before + 4
+    assert sh_jv_mod.launches_by_batch()[K] == by_batch[K] + 1 + (K == 1)
     with pytest.raises(ValueError, match="must lie on"):
         sh_jv_mod.sh_jv(u, v.cpu(), scal)
 
@@ -81,7 +81,7 @@ def test_kernel_rejects_what_it_does_not_take(cuda_device):
     the operator too; nothing is launched."""
     u, v, scal = _inputs((16, 8), 2, torch.float64, cuda_device)
     op = sh_jv_mod.sh_jv_operator(u, scal)
-    before = sh_jv_mod.sh_jv.launches
+    before = sh_jv_mod.launch_count()
     for bad_u, bad_v, bad_scal, err, match in [
             (u.cpu(), v, scal, ValueError, "u must lie on"),
             (u, v, scal.cpu(), ValueError, "scal must lie on"),
@@ -110,4 +110,4 @@ def test_kernel_rejects_what_it_does_not_take(cuda_device):
     one = sh_jv_mod.sh_jv_operator(u[:1, :1].contiguous(), scal)
     with pytest.raises(ValueError, match="batch 65536 > 65535"):
         one(big)
-    assert sh_jv_mod.sh_jv.launches == before
+    assert sh_jv_mod.launch_count() == before
