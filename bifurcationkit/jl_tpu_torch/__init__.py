@@ -108,7 +108,7 @@ __version__ = "0.1.0"
 
 _LAZY_SUBMODULES = ("models", "ops", "linalg", "detection", "continuation",
                     "normal_forms", "codim2", "periodic", "core", "interop",
-                    "wave", "bvp", "utils", "native")
+                    "wave", "bvp", "utils", "native", "parallel")
 
 
 def __getattr__(name):

@@ -11,6 +11,7 @@ src/Continuation.jl:349-504).
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from types import SimpleNamespace
 from typing import Callable
@@ -18,8 +19,8 @@ from typing import Callable
 import torch
 
 from ..core.params import ContinuationPar
-from ..core.state import (BorderedState, DotTheta, ravel, tree_axpy,
-                          tree_map, tree_norm, tree_scale, tree_size,
+from ..core.state import (BorderedState, DotTheta, check_partition, ravel,
+                          tree_axpy, tree_map, tree_norm, tree_scale,
                           tree_sub, tree_vdot, tree_zeros_like)
 from ..linalg.bordered import BorderingBLS
 from ..linalg.eig import (ArnoldiEig, DenseEig, FlatOperator, LOBPCGEig,
@@ -108,11 +109,23 @@ def make_kernels(prob, alg, contparams: ContinuationPar,
     nopts = contparams.newton_options
     theta = float(getattr(alg, "theta", 0.5))
     dot_t = dot_theta or DotTheta()
-    n_state = tree_size(prob.u0)
+    like = ravel(prob.u0)[0]
+    # a row-partitioned problem (`parallel/models.py`) holds one rank's
+    # block in u0 and the whole state's size in `n_global`; its kernels run
+    # inside `parallel.use_mesh`, every other problem's outside it
+    n_global = getattr(prob, "n_global", None)
+    n_state = like.numel() if n_global is None else n_global
     bls = default_bls(alg, nopts)
     jac = _pick_jac(prob, nopts.linsolver)
     p_min, p_max = contparams.p_min, contparams.p_max
-    like = ravel(prob.u0)[0]
+
+    def scoped(fn):
+        @functools.wraps(fn)
+        def run(*args, **kwargs):
+            check_partition(n_global is not None,
+                            "the continuation kernels of this problem")
+            return fn(*args, **kwargs)
+        return run
 
     def as_p(x):
         return torch.as_tensor(x, dtype=like.dtype, device=like.device)
@@ -313,8 +326,9 @@ def make_kernels(prob, alg, contparams: ContinuationPar,
     # (ref FoldEig stripping the border, src/codim2/MinAugFold.jl:579-601);
     # a Floquet monodromy acts on the vector field's n_vf dof
     eig_jac = getattr(prob, "eig_jacobian", None)
+    # the seed holds this rank's entries of the state
     n_eig = (getattr(prob, "n_vf", None) or getattr(prob, "n_inner", None)
-             or n_state) if eig_jac else n_state
+             or n_state) if eig_jac else like.numel()
     seed_shape = (n_eig, n_seed_cols) if n_seed_cols else (n_eig,)
     # the symmetry probe costs two matvecs and a sync: run it on the first
     # sweep only (the JAX package skips it inside its jitted step)
@@ -405,13 +419,13 @@ def make_kernels(prob, alg, contparams: ContinuationPar,
         return z_acc, tau_acc, cv, itn, itl, res, vals, vecs, cv_eig, seed
 
     return SimpleNamespace(
-        newton_fixed=newton_fixed,
-        palc_corrector=palc_corrector,
-        mp_corrector=mp_corrector,
-        palc_step=palc_step,
-        secant_tangent=secant_tangent,
-        bordered_tangent=bordered_tangent,
-        eig=eig,
+        newton_fixed=scoped(newton_fixed),
+        palc_corrector=scoped(palc_corrector),
+        mp_corrector=scoped(mp_corrector),
+        palc_step=scoped(palc_step),
+        secant_tangent=scoped(secant_tangent),
+        bordered_tangent=scoped(bordered_tangent),
+        eig=scoped(eig),
         as_p=as_p,
         n_state=n_state,
         nev=nev,

@@ -214,7 +214,7 @@ class BifurcationProblem:
     # them onto a problem with a different F or state shape would apply a
     # stale operator, so `re_make` drops them then
     _SHAPE_COUPLED_HOOKS = frozenset({"spectral_precond", "batched_F",
-                                      "po_spectral_data"})
+                                      "po_spectral_data", "n_global"})
 
     def re_make(self, **kwargs):
         """dataclasses.replace + carry over the non-field hooks

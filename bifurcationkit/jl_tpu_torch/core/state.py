@@ -6,6 +6,13 @@ those ("pytree" in the JAX package).  Every verb below maps over the
 leaves; reductions return 0-d tensors on the state's device, so a caller
 decides where the host needs a value (each `float(...)` of a CUDA tensor
 is a device sync).
+
+Row-partitioned states (`parallel/`): inside `parallel.use_mesh(mesh)`
+each rank holds its block of the state, and every reduction over the
+state (the dots, norms and sizes below, and the Krylov solvers'
+projections through `allreduce`) is summed over the mesh's `space` ranks.
+Outside it the reducer is None and each reduction is the plain
+single-device one, bit for bit.
 """
 from __future__ import annotations
 
@@ -15,6 +22,84 @@ from typing import Any
 import torch
 
 Pytree = Any
+
+# The cross-rank reducer of a row-partitioned state, None on one device
+# (installed by `parallel.use_mesh`): `reduce(t, op)` completes a sum
+# ("sum") or max ("max") over this rank's block over the ranks, and
+# `span(n)` gives (offset, total) of this rank's n entries in the ranks'
+# concatenated blocks.
+_REDUCER = None
+
+
+def set_reducer(reducer):
+    """Install the cross-rank reducer (or None); returns the previous one."""
+    global _REDUCER
+    prev, _REDUCER = _REDUCER, reducer
+    return prev
+
+
+def allreduce(t: torch.Tensor, op: str = "sum") -> torch.Tensor:
+    """`t`, a reduction over this rank's block, completed over the ranks
+    (the identity on one device)."""
+    return t if _REDUCER is None else _REDUCER.reduce(t, op)
+
+
+def check_partition(partitioned: bool, what: str) -> None:
+    """Raise unless the cross-rank reducer is installed exactly when `what`
+    runs on a row-partitioned state: code that completes its reductions
+    over the ranks must run inside `parallel.use_mesh`, and code that does
+    not (the dense solvers, LOBPCG, block GMRES, ...) outside it, where it
+    would otherwise return one rank's partial answer."""
+    if (_REDUCER is not None) == partitioned:
+        return
+    if partitioned:
+        raise RuntimeError(f"{what} runs on one rank's block of a "
+                           "row-partitioned state: call it inside "
+                           "`parallel.use_mesh(mesh)`")
+    raise NotImplementedError(f"{what} does not reduce over the ranks of a "
+                              "row-partitioned state: call it outside "
+                              "`parallel.use_mesh`")
+
+
+def global_size(n: int, n_rep: int = 0) -> int:
+    """A flat block's number of entries summed over the ranks; its last
+    `n_rep` entries (a bordered state's `p`) are the same on every rank
+    and count once."""
+    if _REDUCER is None:
+        return n
+    return _REDUCER.span(n - n_rep)[1] + n_rep
+
+
+def global_dot(V: torch.Tensor, w: torch.Tensor,
+               n_rep: int = 0) -> torch.Tensor:
+    """`V @ w` over the ranks' flat blocks (`V` one vector or a stack of
+    rows); the last `n_rep` entries are the same on every rank and count
+    once.  The plain product on one device."""
+    if _REDUCER is None:
+        return V @ w
+    if n_rep == 0:
+        return _REDUCER.reduce(V @ w, "sum")
+    k = w.shape[0] - n_rep
+    return _REDUCER.reduce(V[..., :k] @ w[:k], "sum") + V[..., k:] @ w[k:]
+
+
+def global_norm(x: torch.Tensor, n_rep: int = 0) -> torch.Tensor:
+    """The 2-norm of a flat block over all ranks, its last `n_rep`
+    entries counted once (`torch.linalg.vector_norm` on one device)."""
+    if _REDUCER is None:
+        return torch.linalg.vector_norm(x)
+    return torch.sqrt(global_dot(x, x, n_rep))
+
+
+def local_randn(gen: torch.Generator, n: int, dtype, device) -> torch.Tensor:
+    """n normal draws from `gen`; with a reducer, this rank's slice of one
+    draw over all ranks' entries, so the ranks start from the vector one
+    device would draw (in the ranks' order of the entries)."""
+    if _REDUCER is None:
+        return torch.randn((n,), generator=gen, dtype=dtype, device=device)
+    off, total = _REDUCER.span(n)
+    return torch.randn((total,), generator=gen, dtype=dtype,
+                       device=device)[off:off + n]
 
 
 @dataclasses.dataclass
@@ -83,11 +168,42 @@ def tree_zeros_like(a: Pytree) -> Pytree:
     return tree_map(torch.zeros_like, a)
 
 
+def tree_conj(a: Pytree) -> Pytree:
+    return tree_map(torch.conj, a)
+
+
+def tree_real(a: Pytree) -> Pytree:
+    return tree_map(torch.real, a)
+
+
+def _reduced(part, a: Pytree, *rest: Pytree, op: str = "sum"):
+    """`part` over the leaves, completed over the ranks.  A
+    `BorderedState`'s `p` is the same on every rank: only its `u` is
+    reduced over them (the order of the sum is the leaves' either way)."""
+    if isinstance(a, BorderedState):
+        u = part(a.u, *[r.u for r in rest])
+        p = part(a.p, *[r.p for r in rest])
+        return (torch.maximum(allreduce(u, op), p) if op == "max"
+                else allreduce(u, op) + p)
+    return allreduce(part(a, *rest), op)
+
+
+def _leaf_sum(fn):
+    def part(*trees):
+        parts = [fn(*xs) for xs in zip(*map(tree_leaves, trees))]
+        return sum(parts[1:], parts[0])
+    return part
+
+
+def tree_dot(a: Pytree, b: Pytree):
+    """Unconjugated dot product sum_i a_i b_i over all leaves."""
+    return _reduced(_leaf_sum(lambda x, y: torch.sum(x * y)), a, b)
+
+
 def tree_vdot(a: Pytree, b: Pytree):
     """Conjugated dot product sum_i conj(a_i) b_i (ref `VI.inner`)."""
-    parts = [torch.sum(torch.conj(x) * y)
-             for x, y in zip(tree_leaves(a), tree_leaves(b))]
-    return sum(parts[1:], parts[0])
+    return _reduced(_leaf_sum(lambda x, y: torch.sum(torch.conj(x) * y)),
+                    a, b)
 
 
 def tree_norm(a: Pytree):
@@ -95,9 +211,28 @@ def tree_norm(a: Pytree):
     return torch.sqrt(torch.real(tree_vdot(a, a)))
 
 
+def _leaf_max(t: Pytree):
+    parts = [torch.max(torch.abs(torch.as_tensor(x))) for x in tree_leaves(t)]
+    out = parts[0]
+    for x in parts[1:]:
+        out = torch.maximum(out, x)
+    return out
+
+
+def tree_norm_inf(a: Pytree):
+    """Max-norm over all leaves."""
+    return _reduced(_leaf_max, a, op="max")
+
+
+def _numel(t: Pytree) -> int:
+    return sum(int(torch.as_tensor(leaf).numel()) for leaf in tree_leaves(t))
+
+
 def tree_size(a: Pytree) -> int:
     """Total number of scalar entries (python int)."""
-    return sum(int(torch.as_tensor(leaf).numel()) for leaf in tree_leaves(a))
+    if isinstance(a, BorderedState):
+        return global_size(_numel(a.u)) + _numel(a.p)
+    return global_size(_numel(a))
 
 
 # ---------------------------------------------------------------------------
@@ -156,6 +291,11 @@ class DotTheta:
 
     def norm_bs(self, a: BorderedState, theta, n: int):
         return self.norm_theta(a.u, a.p, theta, n)
+
+
+def arc_length_eq(dot_t: DotTheta, u, p, du, dp, theta, ds, n: int):
+    """PALC constraint N(x, p) (ref src/continuation/Palc.jl:44)."""
+    return dot_t.dot_theta(u, du, p, dp, theta, n) - ds
 
 
 def tree_randn_like(gen: torch.Generator, a: Pytree) -> Pytree:

@@ -10,6 +10,7 @@ import numpy as np
 import torch
 
 from . import DEFAULT_DTYPE
+from .parallel.mesh import local_block, shard_state
 
 
 def state_from_numpy(u, params: Dict[str, Any], device,
@@ -22,6 +23,21 @@ def state_from_numpy(u, params: Dict[str, Any], device,
     par_t = {k: torch.tensor(np.asarray(v), dtype=dtype, device=dev)
              for k, v in params.items()}
     return u_t, par_t
+
+
+def state_to_mesh(u, mesh, axis: str = "space", dim: int = 0,
+                  dtensor: bool = False,
+                  dtype: torch.dtype = DEFAULT_DTYPE):
+    """A global state handed over as numpy (the JAX package's array, the
+    same on every rank) placed on a device mesh (`parallel.make_mesh`):
+    this rank's block along `dim` over the ranks of `axis` (`torch.chunk`,
+    as a DTensor's `Shard(dim)` splits) on the mesh's device, or with
+    `dtensor=True` the DTensor sharded so (`parallel.shard_state`)."""
+    t = torch.tensor(np.asarray(u), dtype=dtype,
+                     device=torch.device(mesh.device_type))
+    if dtensor:
+        return shard_state(mesh, t, axis, dim)
+    return local_block(mesh, t, axis, dim)
 
 
 def state_to_numpy(u: torch.Tensor, params: Dict[str, Any]

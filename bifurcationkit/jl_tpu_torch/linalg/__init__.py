@@ -1,6 +1,6 @@
 from .eig import (ArnoldiEig, DenseEig, FlatOperator, LOBPCGEig,
-                  ShiftInvertEig, SubspaceEig)
+                  ShiftInvertEig, SubspaceEig, dense_eig)
 from .geig import DenseGEig, EigenMassMatrix, IterativeGEig, dense_gev, gev
 from .linear import (BiCGStab, DenseLS, GMRES, IterativeRefinement,
-                     PairedOperator)
+                     PairedOperator, apply_J, is_operator)
 from .precond import BlockJacobiPrecond, PartialSchurPrecond

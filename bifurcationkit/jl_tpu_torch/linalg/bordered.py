@@ -22,8 +22,9 @@ from typing import Any, Callable
 
 import torch
 
-from ..core.state import (BorderedState, ravel, tree_add, tree_axpy,
-                          tree_norm, tree_size, tree_sub, tree_vdot)
+from ..core.state import (BorderedState, check_partition, ravel, tree_add,
+                          tree_axpy, tree_norm, tree_size, tree_sub,
+                          tree_vdot)
 from .linear import DenseLS, GMRES, apply_J, dense_solve, is_operator
 
 
@@ -98,6 +99,7 @@ class MatrixBLS:
 
     def __call__(self, J, dR, dzu, dzp, R, n, xi_u=1.0, xi_p=1.0,
                  shift=None, dotp: Callable = _default_dotp):
+        check_partition(False, "MatrixBLS")
         if is_operator(J):
             raise TypeError("MatrixBLS needs a dense matrix jacobian; use "
                             "BorderingBLS or MatrixFreeBLS for operators")
@@ -166,6 +168,7 @@ def solve_bls_block(solver, J, C, D, E, R, s, shift=None):
     x1 = J\\R and X2 = J\\C are k+1 independent solves (one after the
     other here; the JAX package vmaps them), then the k x k Schur
     complement closes the system.  Returns (x, y, converged, n_iter)."""
+    check_partition(False, "solve_bls_block")
     R_flat, unravel = ravel(R)
     kw = {} if shift is None else {"a0": shift}
     sols, cvs, its = [], [], []
@@ -190,6 +193,7 @@ class LSFromBLS:
     bls: Any = dataclasses.field(default_factory=BorderingBLS)
 
     def __call__(self, A, rhs, a0=0.0, a1=1.0):
+        check_partition(False, "LSFromBLS")
         # split A = [[J, b], [c^T, d]] and rhs = [R; n]
         J = A[:-1, :-1]
         b = A[:-1, -1]

@@ -30,7 +30,8 @@ from typing import Any, Callable, Optional
 import numpy as np
 import torch
 
-from ..core.state import ravel, tree_axpy
+from ..core.state import (check_partition, global_dot, global_norm,
+                          global_size, local_randn, ravel, tree_axpy)
 from .linear import (apply_J, dense_factor, dense_factor_solve,
                      is_operator)
 
@@ -57,6 +58,7 @@ class DenseEig:
     """Dense eigensolver (ref `DefaultEig`, src/EigSolver.jl:37-64)."""
 
     def __call__(self, J, nev: int):
+        check_partition(False, "DenseEig")
         if is_operator(J):
             raise TypeError("DenseEig needs a dense matrix jacobian; use "
                             "LOBPCGEig for matrix-free symmetric operators")
@@ -185,6 +187,7 @@ class LOBPCGEig:
                 "Pass symmetry_check=False if the probe misfires.")
 
     def __call__(self, J, nev: int, v0=None, J_hi=None):
+        check_partition(False, "LOBPCGEig")
         if self.compute_dtype is not None and not is_operator(J):
             if J_hi is None and self.refine_iters > 0:
                 J_hi = J
@@ -366,31 +369,35 @@ class ArnoldiEig:
     def __call__(self, J, nev: int, v0=None):
         if self.compute_dtype is not None and not is_operator(J):
             J = J.to(self.compute_dtype)
+        if not is_operator(J):
+            check_partition(False, "ArnoldiEig on a dense jacobian")
         matvec, _, n, dtype, device = _as_flat_matvec(J)
-        m = min(self.krylov_dim, n)
+        # on a row-partitioned state (`parallel.use_mesh`) n is this rank's
+        # block: the Krylov dimension is bounded by the global size, and
+        # every projection and norm is completed over the ranks
+        m = min(self.krylov_dim, global_size(n))
         tiny = float(torch.finfo(dtype).tiny)
         which_lm = self.which == "LM"
         if v0 is not None:
             v0 = torch.as_tensor(v0).to(dtype=dtype, device=device).reshape(n)
-        if v0 is None or not float(torch.linalg.vector_norm(v0)) > 0:
+        if v0 is None or not float(global_norm(v0)) > 0:
             gen = torch.Generator(device=device).manual_seed(self.seed)
-            v0 = torch.randn((n,), generator=gen, dtype=dtype, device=device)
+            v0 = local_randn(gen, n, dtype, device)
 
         def factorization(v_start):
             V = torch.zeros((m + 1, n), dtype=dtype, device=device)
             H = torch.zeros((m + 1, m), dtype=dtype, device=device)
-            V[0] = v_start / torch.clamp_min(
-                torch.linalg.vector_norm(v_start), tiny)
+            V[0] = v_start / torch.clamp_min(global_norm(v_start), tiny)
             for j in range(m):
                 w = matvec(V[j])
                 # classical Gram-Schmidt with reorthogonalization (CGS2) on
                 # the j+1 filled rows of the basis
                 Vj = V[:j + 1]
-                h1 = Vj @ w
+                h1 = global_dot(Vj, w)
                 w = w - h1 @ Vj
-                h2 = Vj @ w
+                h2 = global_dot(Vj, w)
                 w = w - h2 @ Vj
-                beta = torch.linalg.vector_norm(w)
+                beta = global_norm(w)
                 H[:j + 1, j] = h1 + h2
                 H[j + 1, j] = beta
                 # a happy breakdown leaves a zero row, decided on the device
@@ -414,7 +421,7 @@ class ArnoldiEig:
             ysum = torch.as_tensor(y[:, :nev].sum(axis=1), device=device)
             wsum = torch.real(V[:m].T.to(COMPLEX_DTYPE) @ ysum).to(dtype)
             V, (vals, y, resid) = factorization(
-                wsum / torch.clamp_min(torch.linalg.vector_norm(wsum), tiny))
+                wsum / torch.clamp_min(global_norm(wsum), tiny))
         vecs = V[:m].T.to(COMPLEX_DTYPE) @ torch.as_tensor(y[:, :nev],
                                                            device=device)
         return (torch.as_tensor(vals[:nev], device=device), vecs,
@@ -459,6 +466,7 @@ class SubspaceEig:
         return inter[:, :ncols]
 
     def __call__(self, J, nev: int, v0=None):
+        check_partition(False, "SubspaceEig")
         _, block, n, dtype, device = _as_flat_matvec(J)
         b = min(nev + self.extra, n)
         k = max(1, self.krylov_blocks)
@@ -556,6 +564,7 @@ class ShiftInvertEig:
 
             op = FlatOperator(raw_op, n, dtype, device)
         else:
+            check_partition(False, "ShiftInvertEig on a dense jacobian")
             n = J.shape[0]
             fac = dense_factor(J - sigma * torch.eye(n, dtype=J.dtype,
                                                      device=J.device))

@@ -16,6 +16,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from ..core.state import check_partition
 from .eig import ArnoldiEig, FlatOperator
 from .linear import DenseLS, dense_factor, dense_factor_solve, is_operator
 
@@ -46,6 +47,7 @@ class DenseGEig:
     """ref `DefaultGEig` (src/GeneralizedEigenSolver.jl:72-117)."""
 
     def __call__(self, A, B, nev: int):
+        check_partition(False, "DenseGEig")
         w, v = dense_gev(A, B)
         return w[:nev], v[:, :nev], True, 1
 
@@ -83,6 +85,7 @@ class IterativeGEig:
             return self.eigsolver(
                 FlatOperator(op, probe.shape[0], probe.dtype, probe.device),
                 nev)
+        check_partition(False, "IterativeGEig on dense matrices")
         fac = dense_factor(B)
         op = FlatOperator(lambda v: dense_factor_solve(fac, A @ v),
                           A.shape[0], A.dtype, A.device)

@@ -20,7 +20,8 @@ from typing import Any, Callable, Optional
 import numpy as np
 import torch
 
-from ..core.state import ravel, tree_axpby
+from ..core.state import (BorderedState, check_partition, global_dot,
+                          global_norm, global_size, ravel, tree_axpby)
 
 
 # ---------------------------------------------------------------------------
@@ -75,12 +76,14 @@ class DenseLS:
     """Direct dense solve via LU (ref `DefaultLS`, src/LinearSolver.jl:94-117)."""
 
     def __call__(self, J, rhs, a0=0.0, a1=1.0):
+        check_partition(False, "DenseLS")
         A = materialize_shift(J, a0, a1)
         flat, unravel = ravel(rhs)
         return unravel(dense_solve(A, flat)), True, 1
 
     def solve_two(self, J, r1, r2, a0=0.0, a1=1.0):
         """Two RHS sharing one factorization (ref src/LinearSolver.jl:119-131)."""
+        check_partition(False, "DenseLS")
         A = materialize_shift(J, a0, a1)
         f1, unravel1 = ravel(r1)
         f2, unravel2 = ravel(r2)
@@ -116,6 +119,10 @@ class GMRES:
 
     def __call__(self, J, rhs, a0=0.0, a1=1.0):
         flat_rhs, unravel = ravel(rhs)
+        # a bordered state ravels to [u; p]: on a row-partitioned state its
+        # p is the same on every rank and enters each reduction once
+        n_rep = (ravel(rhs.p)[0].numel() if isinstance(rhs, BorderedState)
+                 else 0)
 
         def matvec(xf):
             return ravel(shifted_apply(J, unravel(xf), a0, a1))[0]
@@ -128,11 +135,13 @@ class GMRES:
 
             pb = ravel(prec(unravel(flat_rhs)))[0]
             sol, res, it = _gmres_flat(matvec_p, pb, self.restart,
-                                       self.maxiter, self.rtol, self.atol)
+                                       self.maxiter, self.rtol, self.atol,
+                                       n_rep)
         else:
             sol, res, it = _gmres_flat(matvec, flat_rhs, self.restart,
-                                       self.maxiter, self.rtol, self.atol)
-        b_norm = float(torch.linalg.vector_norm(flat_rhs))
+                                       self.maxiter, self.rtol, self.atol,
+                                       n_rep)
+        b_norm = float(global_norm(flat_rhs, n_rep))
         converged = res <= max(self.rtol * b_norm, self.atol)
         return unravel(sol), converged, it
 
@@ -169,18 +178,21 @@ def _torch_to_np_dtype(dtype):
     return np.float32 if dtype == torch.float32 else np.float64
 
 
-def _gmres_flat(matvec, b, restart, maxiter, rtol, atol):
+def _gmres_flat(matvec, b, restart, maxiter, rtol, atol, n_rep=0):
     """Flat-vector restarted GMRES.  Returns (x, final_resnorm, n_matvec)
     with the JAX package's counting: each cycle costs one residual matvec
-    plus one per Arnoldi step."""
+    plus one per Arnoldi step.  On a row-partitioned state
+    (`parallel.use_mesh`) b is this rank's block and every projection and
+    norm is completed over the ranks, b's last `n_rep` entries (the same
+    on every rank) counted once."""
     n = b.shape[0]
     dtype = b.dtype
     npdt = _torch_to_np_dtype(dtype)
     # dtype-aware division guard: the f64 habit of 1e-300 underflows to 0
     # in f32, turning the happy breakdown h_{j+1,j} -> 0 into w / 0 = NaN
     tiny = float(torch.finfo(dtype).tiny)
-    m = min(restart, n)
-    b_norm = float(torch.linalg.vector_norm(b))
+    m = min(restart, global_size(n, n_rep))
+    b_norm = float(global_norm(b, n_rep))
     tol = max(rtol * b_norm, atol)
 
     x = torch.zeros_like(b)
@@ -188,7 +200,7 @@ def _gmres_flat(matvec, b, restart, maxiter, rtol, atol):
     V = torch.empty((m + 1, n), dtype=dtype, device=b.device)
     while not done and nmv < maxiter:
         r = b - matvec(x)
-        beta_t = torch.linalg.vector_norm(r)
+        beta_t = global_norm(r, n_rep)
         beta = float(beta_t)
         V[0] = r / max(beta, tiny) if beta > 0 else r
         # Hessenberg columns after rotation, Givens pairs and the rotated
@@ -206,11 +218,11 @@ def _gmres_flat(matvec, b, restart, maxiter, rtol, atol):
             # classical Gram-Schmidt with reorthogonalization (CGS2) on the
             # j+1 filled rows of the basis
             Vj = V[:j + 1]
-            h1 = Vj @ w
+            h1 = global_dot(Vj, w, n_rep)
             w = w - h1 @ Vj
-            h2 = Vj @ w
+            h2 = global_dot(Vj, w, n_rep)
             w = w - h2 @ Vj
-            hlast_t = torch.linalg.vector_norm(w)
+            hlast_t = global_norm(w, n_rep)
             h_host = torch.cat([h1 + h2, hlast_t[None]]).cpu().numpy()
             hlast = float(h_host[-1])
             if hlast > tiny:
@@ -257,6 +269,7 @@ def _gmres_block(matvec_block, B, restart, maxiter, rtol, atol):
     Givens updates run on the host, vectorized over the columns, in the
     working dtype.  Returns (X, final_resnorms, n_matvecs) with numpy
     arrays of one entry per column."""
+    check_partition(False, "block GMRES")
     k, n = B.shape
     dtype, dev = B.dtype, B.device
     npdt = _torch_to_np_dtype(dtype)
@@ -370,6 +383,7 @@ class BiCGStab:
                 out = self.precond(out)
             return ravel(out)[0]
 
+        check_partition(False, "BiCGStab")
         b = flat_rhs
         if self.precond is not None:
             b = ravel(self.precond(unravel(flat_rhs)))[0]
@@ -433,6 +447,7 @@ class IterativeRefinement:
     atol: float = 1e-13
 
     def __call__(self, J, rhs, a0=0.0, a1=1.0):
+        check_partition(False, "IterativeRefinement")
         flat_rhs, unravel = ravel(rhs)
         lo = self.low_dtype
 

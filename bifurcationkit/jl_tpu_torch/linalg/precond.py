@@ -19,6 +19,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from ..core.state import check_partition
 from .eig import ArnoldiEig, FlatOperator, dense_eig
 from .linear import dense_factor, dense_factor_solve, dense_solve
 
@@ -58,6 +59,7 @@ class PartialSchurPrecond:
 
     def __call__(self, v):
         """Apply P^-1 v (ref ldiv!, src/Preconditioner.jl:20-40)."""
+        check_partition(False, "PartialSchurPrecond")
         c = self.Q.T @ v
         return v + self.Q @ (dense_solve(self.T, c) - c)
 

@@ -24,6 +24,8 @@ the parameters (0-d tensors) are made there.
 """
 from __future__ import annotations
 
+from typing import Callable
+
 import numpy as np
 import torch
 
@@ -231,6 +233,70 @@ def stuart_landau(r: float = 0.5, mu: float = 0.1, nu: float = 1.0,
                        dtype, dev), lens="r", jac_op=jac_op))
 
 
+def _brusselator_terms(B: int, h: float, halo: Callable = None):
+    """F, the closed-form J.v and dF/dl of the 1D Brusselator on B sites
+    whose state is the flat [u; v] (a leading batch broadcasts).  The
+    second difference of the stacked (..., 2, B) species takes its sites
+    past each end from `halo(x)` -> (previous, next), each (..., 2, 1) or
+    None; None (and `halo=None`, the whole domain on one device) puts the
+    Dirichlet values there (zero for J.v).  `parallel/models.py` passes
+    the neighbouring ranks' sites."""
+
+    def lap(uv, edge):
+        x = torch.stack([uv[..., :B], uv[..., B:]], dim=-2)
+        prev, nxt = (None, None) if halo is None else halo(x)
+        e = (x.new_zeros(x.shape[:-1] + (1,)) if edge is None
+             else edge.expand(x.shape[:-1] + (1,)))
+        ext = torch.cat([e if prev is None else prev, x,
+                         e if nxt is None else nxt], -1)
+        return ext[..., :-2] - 2 * ext[..., 1:-1] + ext[..., 2:]
+
+    def coefs(par):
+        ll = par["l"]
+        return (par["D1"] / (ll ** 2 * h ** 2),
+                par["D2"] / (ll ** 2 * h ** 2))
+
+    def edges(par):
+        a = par["alpha"]
+        return torch.stack([a, par["beta"] / a]).reshape(2, 1)
+
+    def F(uv, par):
+        a, b = par["alpha"], par["beta"]
+        c1, c2 = coefs(par)
+        L = lap(uv, edges(par))
+        u, v = uv[..., :B], uv[..., B:]
+        fu = c1 * L[..., 0, :] + a - (b + 1) * u + u * u * v
+        fv = c2 * L[..., 1, :] + b * u - u * u * v
+        return torch.cat([fu, fv], -1)
+
+    def jac_op(uv, par):
+        """J(uv) w: the second difference of the direction with zero past
+        the domain's ends (the boundary values are constants) and the
+        reaction terms' derivative."""
+        b = par["beta"]
+        c1, c2 = coefs(par)
+        u, v = uv[..., :B], uv[..., B:]
+        uv2, uu = 2 * u * v, u * u
+
+        def op(w):
+            L = lap(w, None)
+            du, dv = w[..., :B], w[..., B:]
+            fu = c1 * L[..., 0, :] - (b + 1) * du + uv2 * du + uu * dv
+            fv = c2 * L[..., 1, :] + b * du - uv2 * du - uu * dv
+            return torch.cat([fu, fv], -1)
+
+        return op
+
+    def dFdp(uv, par):
+        """dF/dl: only the diffusion coefficients D / (l h)^2 depend on l."""
+        c1, c2 = coefs(par)
+        L = lap(uv, edges(par))
+        k = -2.0 / par["l"]
+        return torch.cat([k * c1 * L[..., 0, :], k * c2 * L[..., 1, :]], -1)
+
+    return F, jac_op, dFdp
+
+
 def brusselator_1d(n: int = 100, alpha: float = 2.0, beta: float = 5.45,
                    D1: float = 0.008, D2: float = 0.004, l: float = 0.3,
                    device=None, dtype: torch.dtype = DEFAULT_DTYPE,
@@ -244,53 +310,7 @@ def brusselator_1d(n: int = 100, alpha: float = 2.0, beta: float = 5.45,
     broadcasting, which the periodic orbits' batched and variational
     routes use; by default the problem has none of them."""
     dev = resolve_device(device)
-    h = 1.0 / n
-
-    def F(uv, par):
-        a = par["alpha"]
-        b = par["beta"]
-        ll = par["l"]
-        u = uv[..., :n]
-        v = uv[..., n:]
-        c1 = par["D1"] / (ll ** 2 * h ** 2)
-        c2 = par["D2"] / (ll ** 2 * h ** 2)
-        edge = u.shape[:-1] + (1,)
-        ae = a.expand(edge)
-        ve = (b / a).expand(edge)
-        u_ext = torch.cat([ae, u, ae], -1)
-        v_ext = torch.cat([ve, v, ve], -1)
-        lap_u = u_ext[..., :-2] - 2 * u_ext[..., 1:-1] + u_ext[..., 2:]
-        lap_v = v_ext[..., :-2] - 2 * v_ext[..., 1:-1] + v_ext[..., 2:]
-        fu = c1 * lap_u + a - (b + 1) * u + u * u * v
-        fv = c2 * lap_v + b * u - u * u * v
-        return torch.cat([fu, fv], -1)
-
-    def jac_op(uv, par):
-        """J(uv) w in closed form: the Dirichlet second difference of the
-        direction (the boundary values are constants) and the reaction
-        terms' derivative."""
-        b = par["beta"]
-        ll = par["l"]
-        u = uv[..., :n]
-        v = uv[..., n:]
-        c1 = par["D1"] / (ll ** 2 * h ** 2)
-        c2 = par["D2"] / (ll ** 2 * h ** 2)
-        uv2, uu = 2 * u * v, u * u
-
-        def lap0(w):
-            z = torch.zeros_like(w[..., :1])
-            return (torch.cat([z, w[..., :-1]], -1) - 2 * w
-                    + torch.cat([w[..., 1:], z], -1))
-
-        def op(w):
-            du = w[..., :n]
-            dv = w[..., n:]
-            fu = c1 * lap0(du) - (b + 1) * du + uv2 * du + uu * dv
-            fv = c2 * lap0(dv) + b * du - uv2 * du - uu * dv
-            return torch.cat([fu, fv], -1)
-
-        return op
-
+    F, jac_op, _ = _brusselator_terms(n, 1.0 / n)
     u0 = torch.cat([torch.full((n,), alpha, dtype=dtype, device=dev),
                     torch.full((n,), beta / alpha, dtype=dtype, device=dev)])
     params = _params({"alpha": alpha, "beta": beta, "D1": D1, "D2": D2,

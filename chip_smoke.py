@@ -21,7 +21,30 @@ Phases, one line each (a failing phase raises and the script exits non-zero):
    product must read what the matrix holds at the call); the SH J.v's
    periodic closure (`compare_periodic`) at 512x512 with every batch size
    the periodic SH2d launches and one past each, at the flagship grid and
-   at odd and tiny grids;
+   at odd and tiny grids; its halo-row closure (`compare_halo`, the row
+   block of parallel/halo.py::sharded_sh_jv): 152x100 split into 2, 4
+   and 8 row blocks, 37x23 into 3 and 6x23 into 3 blocks of 2 rows, each
+   block given its neighbours' rows and the global-edge flags, against
+   the whole-field Neumann kernel and the plain version of each block, at
+   every batch size the `parallel` phase launches and one past it;
+3b. `parallel`, the multi-device path (jl_tpu_torch/parallel): 2 ranks
+   on the one card, spawned as processes of their own in one gloo group;
+   gloo moves CPU tensors only, so halos and reductions go through pinned
+   host buffers while every kernel and all compute stay on the card (no
+   GPU-to-GPU collective is exercised). Each rank runs legs 1, 2 and 4 of
+   the dry run (parallel/dryrun.py, after __graft_entry__.py::
+   dryrun_multichip): the Brusselator Newton and PALC corrector (and one
+   more on a secant tangent whose u-part is not zero), 3 SH2d
+   steps with detection, and at the flagship's 152x100 the halo'd J.v
+   against the single-device one (1e-10) and one continuation step with
+   detection, every J.v through `sh_jv`'s halo closure; then the
+   row-partitioned DIA SpMV at the Brusselator path's shape against the
+   single-device kernel and the plain version (1e-12). The same legs on
+   one device on the card: p to 1e-8, the same detection counts, leg 1's
+   states to 1e-8. Prints the seconds per leg, the Newton and GMRES
+   iterations, the transport and the halo launches by (dtype, K); fails
+   on a (dtype, K) that compare_halo does not check, or if a rank fails.
+   compare_halo and parallel take at most 60 s together (printed);
 4. main paths, each with every kernel's launch count reset just before it
    and read just after:
    a. the SH2d-fronts flagship at 151x100 — Newton, then PALC through
@@ -35,8 +58,8 @@ Phases, one line each (a failing phase raises and the script exits non-zero):
       coefficients, seconds, `sh_jv` launches by batch size and GMRES
       iterations per bordered solve — held against the same normal form
       with J.v through the plain version to 1e-8; then branch switching
-      there with the example's parameters (`multicontinuation` where the
-      kernel is 2d), every step converged to |F| <= 1e-7 and the first
+      there with the example's parameters, ABS_STEPS steps
+      (`multicontinuation` where the kernel is 2d), every step converged to |F| <= 1e-7 and the first
       point off the primary branch;
    c. the Brusselator at 128 sites (256 unknowns) with its jacobian as a
       five-diagonal `DIAMatrix` — Newton from a perturbed guess, then PALC
@@ -57,7 +80,8 @@ Phases, one line each (a failing phase raises and the script exits non-zero):
       then one more of the curve's own steps under torch.profiler (busy
       time, idle share, longest kernels); sigma recomputed with fresh
       random borders on and off the curve at its first, middle and last
-      points; the first 2 steps again with J.v through the plain version,
+      points; the first FOLD_PLAIN_STEPS steps again with J.v through the
+      plain version,
       (nu, l) to 1e-8;
    f. `bruss_hopf_curve`: the matrix-free Hopf curve in beta from the
       128-site Brusselator's Hopf point (examples/brusselator.py:24-27,
@@ -75,7 +99,7 @@ Phases, one line each (a failing phase raises and the script exits non-zero):
       at the exact Hopf point and its predictor, the space-time spectral
       preconditioner, Floquet by `FloquetQaDMF(SubspaceEig)` over the
       matrix-free monodromy (a batched GMRES solve per slice); 1 warm and
-      3 timed steps (steps/s, Newton and GMRES iterations, monodromy
+      2 timed steps (steps/s, Newton and GMRES iterations, monodromy
       applications and inner matvecs per Floquet sweep), one more step
       under torch.profiler (`po_breakdown`), the launches of one
       application of each preconditioner and of the monodromy; checks:
@@ -218,7 +242,9 @@ Phases, one line each (a failing phase raises and the script exits non-zero):
    the CUDA launch in it), and the stream and device queries around it;
    the SH J.v's periodic closure at 512x512 (K = 1 in f32 and f64, and
    LOBPCG's K = 15 in f32), beside the Neumann closure at the same
-   shapes.
+   shapes; its halo closure on a rank's block of the dry run's 152x100
+   (76x100, K = 1, f32 and f64, the top a global edge and 2 halo rows
+   below), beside the Neumann closure on the whole 152x100.
 
 Then each part's seconds on the host clock (`wall`), the nvidia-smi line,
 one JSON line listing the kernels (po_cgl and po_bruss launch neither:
@@ -281,11 +307,17 @@ FLAGSHIP_BP_STEPS = 11
 # H100; the bench runs at most 60 steps
 FLAGSHIP_FOLD_STEPS = 11
 FOLD_WARM, FOLD_TIMED = 1, 2   # fold-curve steps (bench.py's ma_mf: 30)
+# depth cuts for the 1,200 s limit (PR 11, beside the parallel phase): the
+# aBS steps after the flagship's branch point (6 before), the fold curve's
+# steps again through the plain J.v (2 before)
+ABS_STEPS = 4
+FOLD_PLAIN_STEPS = 1
 CODIM2_TOL = 1e-8          # curves through a kernel against a reference
 # depth cut of the Brusselator's Hopf curve (examples/brusselator.py runs
-# it to beta = 10.5): 4 steps, so that the script keeps its time limit
-# with the phases of section 4m
-BRUSS_HOPF_STEPS = 4
+# it to beta = 10.5): 3 steps (6 until PR 9, 4 in PR 10), so that the
+# script keeps its time limit; the dense-eig and l1 witnesses are taken at
+# every point after the first (3 points, as at 4 steps)
+BRUSS_HOPF_STEPS = 3
 L1_RTOL = 1e-6             # l1 through a kernel against the dense witness
 NF_KEYS = ("a01", "b11", "b20", "b30")
 NF_INDICES = {"a01": 1, "b11": 2, "b20": 3, "b30": 4}
@@ -1066,7 +1098,7 @@ def flagship_bp(card, prob, ls, br, **domain):
     ds = -0.003
     cp_abs = bk.ContinuationPar(
         ds=-0.004, dsmax=0.01, dsmin=1e-7, p_min=-0.8, p_max=0.2,
-        max_steps=6, detect_bifurcation=0, detect_fold=False,
+        max_steps=ABS_STEPS, detect_bifurcation=0, detect_fold=False,
         newton_options=bk.NewtonPar(tol=NEWTON_TOL, max_iterations=20,
                                     linsolver=ls))
     nd = type(nf).__name__ == "NdBranchPoint"
@@ -1420,7 +1452,8 @@ def flagship_fold(card):
     plain = dataclasses.replace(
         br, prob=br.prob.re_make(jac_op=flagship_plain_jac_op()))
     reset_launches()
-    brp = bk.continuation_fold(plain, idx, "nu", fold_curve_config(prob, 2),
+    brp = bk.continuation_fold(plain, idx, "nu",
+                               fold_curve_config(prob, FOLD_PLAIN_STEPS),
                                detect_codim2_bifurcation=2,
                                jacobian_ma="minaug")
     torch.cuda.synchronize()
@@ -1432,7 +1465,8 @@ def flagship_fold(card):
     phase("flagship_fold_plain", steps=k - 1, max_abs_gap=gap,
           tol=CODIM2_TOL, sh_jv_launches=plain_launches,
           seconds=time.perf_counter() - t2)
-    if not (k == 3 and gap <= CODIM2_TOL and plain_launches == 0):
+    if not (k == FOLD_PLAIN_STEPS + 1 and gap <= CODIM2_TOL
+            and plain_launches == 0):
         raise AssertionError(f"the fold curve through sh_jv differs from "
                              f"the plain J.v's: {gap} ({k - 1} steps, "
                              f"{plain_launches} sh_jv launches)")
@@ -1537,7 +1571,7 @@ def bruss_hopf_curve(card, prob, br):
     maprob = brh.gamma.prob
     jac = brusselator_dia_jac_op(n // 2)
     eig_checks = []
-    for k in (1, len(brh) // 2, len(brh) - 1):
+    for k in range(1, len(brh)):
         X = brh.gamma.sol[k]["x"]
         par = maprob.inner_lens.set(maprob.outer_lens.set(
             prob.params, float(curve["param"][k])), X[n])
@@ -1581,7 +1615,7 @@ def bruss_hopf_curve(card, prob, br):
         dense.append(float(l1_dense(brh.gamma.sol[k]["x"].cpu(),
                                     par["_inner"])))
     l1_gaps = []
-    for k in (1, len(brh) // 2, len(brh) - 1):
+    for k in range(1, len(brh)):
         p2 = float(curve["param"][k])
         X = brh.gamma.sol[k]["x"]
         a = float(l1_card(X, maprob.set_lens_param(maprob.params, p2)))
@@ -2552,6 +2586,10 @@ def _analytic_models(dev):
             make(zh, [-0.3, 0.0, 0.0], p1=-0.09, p2=0.05))
 
 
+# the switched PO curves of the constructed models: 3 steps (4 until PR 10)
+ANALYTIC_STEPS = 3
+
+
 def _analytic_switch(prob, cp_kw, cp2_kw, kind, eps, steps):
     cp = bk.ContinuationPar(newton_options=bk.NewtonPar(tol=1e-10),
                             detect_bifurcation=3, nev=3, n_inversion=4,
@@ -2697,12 +2735,12 @@ def _small_po_family(dev):
         bprob, dict(ds=0.005, dsmax=0.01, dsmin=1e-7, p_min=-0.06,
                     p_max=0.05, max_steps=60),
         dict(ds=0.02, dsmax=0.04, dsmin=1e-7, p_min=-0.4, p_max=0.02,
-             max_steps=30), "gh", 0.07, 4)
+             max_steps=30), "gh", 0.07, ANALYTIC_STEPS)
     curves["zh_ns"] = _analytic_switch(
         zprob, dict(ds=0.005, dsmax=0.01, dsmin=1e-7, p_min=-0.1,
                     p_max=-0.001, max_steps=100),
         dict(ds=-0.005, dsmax=0.01, dsmin=1e-7, p_min=-0.02, p_max=0.2,
-             max_steps=30), "zh", 0.08, 4)
+             max_steps=30), "zh", 0.08, ANALYTIC_STEPS)
     tg = curves["gh_fold_po"].gamma._table()
     tz = curves["zh_ns"].gamma._table()
     coefs["gh_curve_gap"] = float(np.max(np.abs(
@@ -2713,8 +2751,9 @@ def _small_po_family(dev):
     secs["analytic"] = time.perf_counter() - t
 
     # Lorenz-84: its ZH on the Hopf curve in G (cut just past it, at
-    # G = 1.75) to the NS curve, 3 steps (test_po_switch.py:225-268 runs
-    # 8); the direct MA start collapses onto the trivial multiplier there
+    # G = 1.75) to the NS curve, 2 steps (test_po_switch.py:225-268 runs
+    # 8; 3 until PR 10); the direct MA start collapses onto the trivial
+    # multiplier there
     # and the on-branch fallback delivers the curve
     t = time.perf_counter()
     lz = models.lorenz84(device=dev)
@@ -2733,7 +2772,7 @@ def _small_po_family(dev):
                if s_.type == "zh")
     lns = bk.switch_codim2_po(lbh, izh, bk.ContinuationPar(
         ds=-0.003, dsmax=0.01, dsmin=1e-9, p_min=0.5, p_max=2.5,
-        max_steps=3, detect_bifurcation=0, detect_event=0,
+        max_steps=2, detect_bifurcation=0, detect_event=0,
         newton_options=bk.NewtonPar(tol=1e-8, max_iterations=40)),
         disc=bk.Collocation(Ntst=40, m=4), eps=0.15, detect_codim3=0)
     curves["lorenz84_ns"] = lns
@@ -2814,9 +2853,9 @@ def check_small_po_codim2():
 # ---------------------------------------------------------------------------
 
 # bench.py:620-700: 41x21 grid, 1,722 vector-field unknowns, M = 51 slices,
-# 87,823 unknowns; depth cut to 1 warm + 3 timed steps (the bench's 2 + 5)
+# 87,823 unknowns; depth cut to 1 warm + 2 timed steps (the bench's 2 + 5)
 PO_NX, PO_NY, PO_M = 41, 21, 51
-PO_WARM, PO_TIMED = 1, 3
+PO_WARM, PO_TIMED = 1, 2   # 3 timed steps until PR 10
 PO_SMALL = (21, 11)           # examples/cgl2d.py:24, card against CPU
 PO_FLOQUET_TOL = 1e-4         # SubspaceEig against the dense monodromy
 # the witness solve's SubspaceEig (the bench's: sweeps 2, blocks 3, extra 4)
@@ -3371,7 +3410,8 @@ def po_bruss_small():
 # ---------------------------------------------------------------------------
 
 SH_SITES = 40              # the example's own size: 80 unknowns
-SH_STEPS = 4               # the example's 15 branch steps cut to 4
+SH_STEPS = 4               # the example's 15 branch steps cut to 4 (at 3
+                           # the Poincare Newton from the last orbit fails)
 SH_RTOL, SH_MU = 1e-8, 1e-6
 SH_MF_RTOL = 1e-10         # the MF monodromy against its references
 # 4 block applications of the operator (the witness settings of po_cgl
@@ -4284,6 +4324,214 @@ def io_native(shp_branch, sh1d_branch):
 
 
 # ---------------------------------------------------------------------------
+# 3b, 4n. the multi-device path (jl_tpu_torch/parallel)
+# ---------------------------------------------------------------------------
+
+PARALLEL_RANKS = 2
+PARALLEL_BUDGET_S = 60     # compare_halo and parallel together
+# (shape, row blocks) of compare_halo: the dry run's 152 x 100 (leg 4) in
+# 2, 4 and 8 blocks, a ragged 37 x 23 in 3, and 6 x 23 in 3 blocks of 2
+# rows; each at every batch size of HALO_KS
+HALO_SPLITS = [((152, 100), 2), ((152, 100), 4), ((152, 100), 8),
+               ((37, 23), 3), ((6, 23), 3)]
+# every K at which the parallel phase launches the halo closure (K = 1:
+# F, GMRES and Arnoldi apply J to one field) and one past it; `parallel`
+# fails on a (dtype, K) it launched that is not here
+HALO_KS = (1, 2)
+
+
+def compare_halo():
+    """`sh_jv_halo` on row blocks of a field, each given its neighbours'
+    rows and the global-edge flags, against the whole-field Neumann kernel
+    and against the plain version of each block, f64 and f32."""
+    worst, checked = 0.0, set()
+    for dtype in (torch.float64, torch.float32):
+        name = str(dtype).split(".")[-1]
+        for i, (shape, nb) in enumerate(HALO_SPLITS):
+            bounds = [int(b) for b in np.linspace(0, shape[0], nb + 1).round()]
+            for K in HALO_KS:
+                u, v, scal = _inputs(shape, K, dtype, seed=80 + i)
+                vv = v if K > 1 else v[0]
+                out = sh_jv_mod.sh_jv_by_blocks(u, vv, scal, bounds)
+                whole = sh_jv_mod.sh_jv(u, vv, scal)
+                torch.cuda.synchronize()
+                plain = sh_jv_mod.sh_jv_by_blocks(
+                    u, vv, scal, bounds, fn=sh_jv_mod.sh_jv_halo_plain)
+                err_plain = float((out - plain).abs().max())
+                err_whole = float((out - whole).abs().max())
+                rel_plain = err_plain / float(plain.abs().max())
+                rel_whole = err_whole / float(whole.abs().max())
+                phase("compare_halo", dtype=name,
+                      shape=f"{shape[0]}x{shape[1]}", blocks=nb, K=K,
+                      max_abs_err=err_plain, max_rel_err=rel_plain,
+                      max_rel_err_whole=rel_whole, tol=TOL[dtype])
+                if not (rel_plain < TOL[dtype] and rel_whole < TOL[dtype]):
+                    raise AssertionError(
+                        f"sh_jv's halo closure disagrees: {rel_plain} "
+                        f"(plain), {rel_whole} (whole-field kernel)")
+                worst = max(worst, err_plain)
+                checked.add((name, K))
+    return worst, checked
+
+
+def parallel_rank(n_ranks):
+    """One rank of the `parallel` phase, in a process of its own that
+    `parallel` spawns: dry-run legs 1, 2 and 4 on the card, then the
+    row-partitioned DIA SpMV at the Brusselator path's shape against the
+    single-device product.  Returns the rank's numbers."""
+    from bifurcationkit.jl_tpu_torch.parallel import (
+        dryrun, full_state, make_mesh, sharded_dia_spmv)
+
+    torch.cuda.set_device(0)
+    mesh = make_mesh((1, n_ranks), device="cuda")
+    out = dryrun.dryrun_multichip(n_ranks, "cuda", mesh=mesh)
+    A, v = _dia_inputs(2 * BRUSS_SITES, PATH_OFFSETS, 1, torch.float64,
+                       seed=90)
+    dia_spmv.launches = 0
+    got = full_state(sharded_dia_spmv(mesh, A, v), mesh)
+    launches = dia_spmv.launches
+    ref, plain = A.matvec(v), dia_spmv_plain(A, v)
+    torch.cuda.synchronize()
+    out["dia"] = dict(n=2 * BRUSS_SITES, offsets=list(PATH_OFFSETS),
+                      launches=launches,
+                      max_abs_err=float((got - ref).abs().max()),
+                      max_abs_err_plain=float((got - plain).abs().max()),
+                      scale=float(ref.abs().max()))
+    out["device"] = torch.cuda.get_device_name(0)
+    return out
+
+
+def parallel():
+    """The multi-device path on the one card: PARALLEL_RANKS ranks spawned
+    as processes of their own (gloo, halos and reductions through pinned
+    host buffers; every kernel and all compute on the card), legs 1, 2 and
+    4 of the dry run (leg 4 at 152 x 100) and the sharded DIA SpMV; then
+    the same legs single-device on the card.  Checks: every rank
+    converged; leg 4's halo'd J.v within 1e-10 of the single-device one;
+    each leg's p within 1e-8 of the single device's, the same detection
+    counts, leg 1's states, its secant tangent and the secant corrector's
+    p within 1e-8; the DIA product within 1e-12 of
+    the single-device kernel's and of the plain version (relative to its
+    max); the halo closure and dia_spmv launched on every rank.  Returns
+    (halo launches by (dtype, K) over the ranks, dia_spmv launches over
+    the ranks)."""
+    from bifurcationkit.jl_tpu_torch.parallel import dryrun, launch
+
+    t0 = time.perf_counter()
+    ranks = launch.start_ranks(
+        f"{os.path.join(ROOT, 'chip_smoke.py')}:parallel_rank",
+        PARALLEL_RANKS, dict(n_ranks=PARALLEL_RANKS), timeout=240)
+    res = ranks.join()
+    t_ranks = time.perf_counter() - t0
+    reset_launches()
+    single = dryrun.single_device(PARALLEL_RANKS, "cuda")
+    single_launches = sh_jv_mod.launch_count()
+    halo, dia_launches = {}, 0
+    for r, out in enumerate(res):
+        for key, n in out["halo_launches"].items():
+            halo[key] = halo.get(key, 0) + n
+        dia_launches += out["dia"]["launches"]
+        legs = {}
+        for leg in ("leg1", "leg2", "leg4"):
+            got, ref = out[leg], single[leg]
+            p_got = got["palc_p"] if leg == "leg1" else got["p"]
+            p_ref = ref["palc_p"] if leg == "leg1" else ref["p"]
+            legs[leg] = dict(seconds=out["seconds"][leg], p=p_got,
+                             p_single=p_ref, p_gap=abs(p_got - p_ref))
+            if leg == "leg1":
+                # the Newton state, the dry run's corrector (its tangent's
+                # u-part zero) and the corrector on the secant tangent
+                # whose u-part is not
+                gaps = {key: float(np.max(np.abs(got[key] - ref[key])))
+                        for key in ("u_newton", "u_palc", "tau_u_secant",
+                                    "u_secant")}
+                gaps.update({key: abs(got[key] - ref[key])
+                             for key in ("secant_tau_p", "secant_p")})
+                legs[leg].update(newton_it=got["newton_it"],
+                                 newton_gmres_it=got["newton_gmres_it"],
+                                 palc_it=got["palc_it"],
+                                 palc_gmres_it=got["palc_gmres_it"],
+                                 secant_it=got["secant_it"],
+                                 secant_gmres_it=got["secant_gmres_it"],
+                                 secant_p=got["secant_p"],
+                                 secant_p_single=ref["secant_p"],
+                                 newton_it_single=ref["newton_it"],
+                                 gaps=gaps)
+                bad = {k: g for k, g in gaps.items() if not g <= 1e-8}
+                if bad:
+                    raise AssertionError(f"rank {r}: leg 1's states are "
+                                         f"not within 1e-8 of one "
+                                         f"device's: {bad}")
+            else:
+                legs[leg].update(
+                    itnewton=got["itnewton"], itlinear=got["itlinear"],
+                    n_unstable=got["n_unstable"],
+                    n_unstable_single=ref["n_unstable"],
+                    converged_eig=got["converged_eig"])
+                if got["n_unstable"] != ref["n_unstable"]:
+                    raise AssertionError(
+                        f"rank {r}: {leg}'s detection counts "
+                        f"{got['n_unstable']} != {ref['n_unstable']}")
+            if not abs(p_got - p_ref) <= 1e-8:
+                raise AssertionError(f"rank {r}: {leg}'s p {p_got} is not "
+                                     f"within 1e-8 of one device's {p_ref}")
+        dia = out["dia"]
+        if not (max(dia["max_abs_err"], dia["max_abs_err_plain"])
+                <= 1e-12 * max(dia["scale"], 1.0)) or dia["launches"] < 1:
+            raise AssertionError(f"rank {r}: sharded dia_spmv {dia}")
+        if not out["halo_launches"]:
+            raise AssertionError(f"rank {r} launched no halo closure")
+        phase("parallel_rank", rank=r, device=out["device"],
+              transport=out["transport"],
+              jv_rel_err=out["leg4"]["jv_rel_err"], legs=legs,
+              halo_launches=out["halo_launches"], dia=dia)
+    phase("parallel", ranks=PARALLEL_RANKS, seconds_ranks=t_ranks,
+          halo_launches=halo, dia_launches=dia_launches,
+          single_device_sh_jv_launches=single_launches,
+          gpu_to_gpu_collective="none: one card; gloo moves host copies")
+    return halo, dia_launches
+
+
+HALO_TIMING = (76, 100)    # rank 0's block of 152 x 100 over 2 ranks
+
+
+def time_halo(floor):
+    """The halo closure on a rank's block (its top the global edge, the 2
+    rows below it from the next rank), K = 1, f64 and f32, beside the
+    whole-field Neumann kernel at 152 x 100."""
+    cases = []
+    B, M = HALO_TIMING
+    for dtype in F32_64:
+        u, v, scal = _inputs((B, M), 1, dtype, seed=7)
+        vv = v[0]
+        bot = _inputs((2, M), 1, dtype, seed=8)[1][0]
+
+        def kern():
+            return sh_jv_mod.sh_jv_halo(u, vv, None, bot, scal, True, False)
+
+        def plain():
+            return sh_jv_mod.sh_jv_halo_plain(u, vv, None, bot, scal, True,
+                                              False)
+
+        tk1, tp1 = _time(kern, 1000), _time(plain, 1000)
+        tk2, tp2 = _time(kern, 1000), _time(plain, 1000)
+        case = dict(closure="halo", dtype=str(dtype).split(".")[-1],
+                    shape=f"{B}x{M}", K=1, halo_rows=2, ms=(tk1 + tk2) / 2,
+                    host_ms=_host_time(kern, 1000),
+                    device_ms=_device_time(kern, "sh_jv_kernel"),
+                    graph_ms=_graph_time(kern), plain_ms=(tp1 + tp2) / 2,
+                    plain_device_ms=_device_time(plain),
+                    **_bound(sh_jv_mod.sh_jv_halo_bytes(
+                        B, M, 1, u.element_size(), halo_rows=2),
+                        sh_jv_mod.sh_jv_flops(B, M, 1), dtype),
+                    **floor,
+                    library="none: no single PyTorch call computes SH J.v")
+        cases.append(case)
+        phase("timing_halo", **case)
+    return cases + time_kernel(floor, [((2 * B, M), 1, F32_64)])
+
+
+# ---------------------------------------------------------------------------
 # 6. timing
 # ---------------------------------------------------------------------------
 
@@ -4637,9 +4885,21 @@ def main():
     periodic_abs_err, periodic_cases = walled("compare_periodic",
                                               compare_periodic)
     dia_abs_err = walled("compare_dia", compare_dia)
+    halo_abs_err, halo_checked = walled("compare_halo", compare_halo)
+    halo_by_case, parallel_dia = walled("parallel", parallel)
+    unchecked = sorted({(d, int(k)) for d, k in (
+        key.split("/K=") for key in halo_by_case)} - halo_checked)
+    if unchecked:
+        raise AssertionError(f"the parallel phase launched sh_jv's halo "
+                             f"closure at {unchecked}, which no "
+                             f"compare_halo case checks")
+    par_s = WALL_S["compare_halo"] + WALL_S["parallel"]
+    phase("parallel_budget", seconds=par_s, budget_s=PARALLEL_BUDGET_S,
+          within_budget=par_s <= PARALLEL_BUDGET_S)
     prob, ls, br, state, launches, by_batch, steps_per_s = walled(
         "main_path", main_path, card)
-    sh_phases = {"main_path": launches}
+    sh_phases = {"main_path": launches,
+                 "parallel": sum(halo_by_case.values())}
     bp_launches, bp_by_batch = walled("flagship_bp", flagship_bp, card,
                                       prob, ls, br)
     fold_launches, fold_by_batch = walled("flagship_fold", flagship_fold,
@@ -4659,6 +4919,7 @@ def main():
     nf_launches, bruss_hp = walled("bruss_hopf_nf", bruss_hopf_nf, card,
                                    bprob, bbr)
     dia_phases = {
+        "parallel": parallel_dia,
         "brusselator_path": dia_launches, "bruss_hopf_nf": nf_launches,
         "bruss_hopf_curve": walled("bruss_hopf_curve", bruss_hopf_curve,
                                    card, bprob, bbr)}
@@ -4697,6 +4958,7 @@ def main():
     cases = walled("time_kernel", time_kernel, floor)
     periodic_timing = walled("time_periodic", time_kernel, floor,
                              SHP_TIMING, "periodic")
+    halo_timing = walled("time_halo", time_halo, floor)
     dia_cases = walled("time_dia", time_dia, floor)
     phase("clocks_after_timing", clocks=smi_line(CLOCKS))
     phase("wall", seconds=WALL_S, total_s=time.perf_counter() - t0)
@@ -4739,6 +5001,12 @@ def main():
                     shp["by_case"].items())},
             "steps_per_s": shp["steps_per_s"],
             "cases": periodic_timing},
+        "halo": {
+            "entry_points": ["sh_jv_halo_f32", "sh_jv_halo_f64"],
+            "max_abs_err": halo_abs_err,
+            "launches_by_phase": {"parallel": sh_phases["parallel"]},
+            "launches_by_case": halo_by_case,
+            "cases": halo_timing},
     }, {
         "name": "dia_spmv", "route": "cuda",
         "source": "bifurcationkit/jl_tpu_torch/csrc/dia_spmv.cu",

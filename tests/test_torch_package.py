@@ -98,15 +98,35 @@ def _public(mod):
             | set(getattr(mod, "_LAZY_SUBMODULES", ())))
 
 
-def test_export_sets_cover_the_jax_package():
-    """Every top-level name and every `models` name of the JAX package is
-    exported by the port, except `parallel/` (ROADMAP Queue A item 17)."""
-    import bifurcationkit.jl_tpu as bj
-    from bifurcationkit.jl_tpu import models as jmodels
-    import bifurcationkit.jl_tpu_torch as bt
+# the JAX package's subpackages, each compared with the port's
+SUBPACKAGES = ("", "models", "bvp", "codim2", "continuation", "core",
+               "detection", "linalg", "native", "normal_forms", "ops",
+               "parallel", "periodic", "utils", "wave")
+# names the port does not export: the Pallas entry that the CUDA kernel
+# `csrc/dia_spmv.cu` replaces (`ops.dia_spmv` on the card)
+EXEMPT = {"ops": {"dia_spmv_pallas"}}
 
-    assert _public(bj) - _public(bt) - {"parallel"} == set()
-    assert _public(jmodels) - _public(tmodels) == set()
+
+def test_subpackage_list_is_the_jax_packages():
+    import pkgutil
+
+    import bifurcationkit.jl_tpu as bj
+
+    assert {m.name for m in pkgutil.iter_modules(bj.__path__)
+            if m.ispkg} == set(SUBPACKAGES) - {""}
+
+
+@pytest.mark.parametrize("sub", SUBPACKAGES)
+def test_export_sets_cover_the_jax_package(sub):
+    """Every name the JAX package exports at the top level and from each
+    subpackage is exported by the port's counterpart, the Pallas entry
+    `ops.dia_spmv_pallas` excepted."""
+    import importlib
+
+    suffix = f".{sub}" if sub else ""
+    jmod = importlib.import_module("bifurcationkit.jl_tpu" + suffix)
+    tmod = importlib.import_module("bifurcationkit.jl_tpu_torch" + suffix)
+    assert _public(jmod) - _public(tmod) - EXEMPT.get(sub, set()) == set()
 
 
 def test_entry_point_needs_the_card_unless_told(monkeypatch):

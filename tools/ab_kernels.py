@@ -16,7 +16,8 @@ and `sh_jv(u, v, scal)`, in f32 and f64:
   back-to-back calls), its host time (the host clock over calls with no
   sync) and the card's own time (torch.profiler);
 - at the shapes that move megabytes (DIA SpMV 2^20 rows, SH J.v 151x100
-  K = 60 and 1024x1024 K = 1): the card's time warm, back to back on one
+  K = 60 and 1024x1024 K = 1, and its periodic closure at the periodic
+  SH2d's 512x512 K = 1): the card's time warm, back to back on one
   set of inputs, and cold, in turn over copies of the inputs three times
   the L2 cache's size, so that each call reads from HBM.
 
@@ -132,7 +133,7 @@ def measure(tree):
         return functools.partial(dia_spmv, DIAMatrix(data, offsets), v), \
             nbytes
 
-    def sh(shape, K, dtype, seed):
+    def sh(shape, K, dtype, seed, closure="neumann"):
         rng = np.random.default_rng(seed)
         u = torch.as_tensor(rng.standard_normal(shape), dtype=dtype,
                             device=dev)
@@ -142,7 +143,7 @@ def measure(tree):
         scal = torch.tensor([-0.1, 1.3, 1.0 / 0.11, 1.0 / 0.07],
                             dtype=dtype, device=dev)
         nbytes = (1 + 2 * K) * shape[0] * shape[1] * u.element_size()
-        return functools.partial(sh_mod.sh_jv, u, v, scal), nbytes
+        return functools.partial(sh_mod.sh_jv, u, v, scal, closure), nbytes
 
     rows = [dict(kernel="-", case="clocks before", smi=_smi(CLOCKS))]
     for dtype in (torch.float64, torch.float32):
@@ -164,7 +165,9 @@ def measure(tree):
                 ("sh_jv", "151x100 K=60", lambda s: sh((151, 100), 60,
                                                        dtype, s)),
                 ("sh_jv", "1024x1024 K=1", lambda s: sh((1024, 1024), 1,
-                                                        dtype, s))):
+                                                        dtype, s)),
+                ("sh_jv", "periodic 512x512 K=1",
+                 lambda s: sh((512, 512), 1, dtype, s, "periodic"))):
             fn, nbytes = make(7)
             copies = [make(100 + c)[0] for c in range(_cold_copies(nbytes))]
             key = f"{kernel}_kernel"
