@@ -20,7 +20,13 @@ curves, nothing materialised.
   a hand-written kernel).  The second derivatives (sigma_x, sigma_p1,
   d sigma / d p2 and the Hopf counterparts) are taken from F itself: a
   vjp or jvp of a jvp of F.  A kernel computes values only and carries
-  no derivative.
+  no derivative.  The fold route takes the model's closed forms where it
+  gives them (`jac_adjoint`, `grad_pairing`, `param_derivs`), as a
+  row-partitioned model must (`parallel/models.py`): no AD crosses a halo
+  exchange.
+* On a row-partitioned state (inside `parallel.use_mesh`) the fold route
+  completes its border dots and norms over the ranks, and its GMRES
+  counts the extended vector's scalar tail once (`GMRES.n_rep`).
 * Border re-anchoring, the BT/cusp/ZH and BT/GH test functions and the
   per-step inner spectrum (`eig_jacobian`, an operator for the iterative
   eigensolvers) reuse the same bordered solves.
@@ -41,7 +47,7 @@ from ..continuation.results import Branch
 from ..core.lens import as_lens
 from ..core.params import ContinuationPar
 from ..core.problem import BifurcationProblem
-from ..core.state import ravel, tree_map
+from ..core.state import global_dot, global_norm, ravel, tree_map
 from ..detection.events import ContinuousEvent, DiscreteEvent, PairOfEvents
 from ..linalg.linear import GMRES, IterativeRefinement, PairedOperator
 from ..linalg.eig import FlatOperator
@@ -77,25 +83,26 @@ def ext_precond2(precond, n: int):
 
 
 def _ir_solve(op_hi, op_lo, rhs, gm_lo, lo, refinements: int = 2,
-              rtol: float = 1e-11, atol: float = 1e-14):
+              rtol: float = 1e-11, atol: float = 1e-14, n_rep: int = 0):
     """Mixed-precision solve of op_hi x = rhs: all Krylov matvecs run the
     low-precision twin `op_lo`, a couple of residual corrections at rhs's
     precision restore full accuracy.  Each low-precision correction is
     finite-guarded: a Krylov breakdown contributes nothing instead of
     poisoning the iterate, and the next pass retries from the current x.
-    Returns (x, converged)."""
+    The residual norms count rhs's last `n_rep` entries once on a
+    partitioned state (`GMRES.n_rep`).  Returns (x, converged)."""
     def _san(v):
         return torch.where(torch.isfinite(v), v, torch.zeros_like(v))
 
     x0, _, _ = gm_lo(op_lo, rhs.to(lo))
     x = _san(ravel(x0)[0]).to(rhs.dtype)
-    tol = max(rtol * float(torch.linalg.vector_norm(rhs)), atol)
-    rn = float(torch.linalg.vector_norm(rhs - op_hi(x)))
+    tol = max(rtol * float(global_norm(rhs, n_rep)), atol)
+    rn = float(global_norm(rhs - op_hi(x), n_rep))
     k = 0
     while rn > tol and k < refinements:
         d, _, _ = gm_lo(op_lo, (rhs - op_hi(x)).to(lo))
         x = x + _san(ravel(d)[0]).to(rhs.dtype)
-        rn = float(torch.linalg.vector_norm(rhs - op_hi(x)))
+        rn = float(global_norm(rhs - op_hi(x), n_rep))
         k += 1
     return x, rn <= tol
 
@@ -106,12 +113,15 @@ def solve_bordered_ext(Jd, col, row, gmres, rhs_top=None, rhs_bot=1.0,
     extended flat operator.  `Jd` is a flat matvec; the default RHS
     [0; 1] is the null-vector system.  With (`Jd_lo`, `gm_lo`, `lo`) the
     Krylov work runs the low-precision twin with refinement (`_ir_solve`).
-    Returns (v, s, converged)."""
+    On a row-partitioned state (`parallel.use_mesh`) col, row and v are
+    this rank's blocks and s the replicated tail: the border dot is
+    completed over the ranks, and the GMRES of `_make_ma_gmres` counts s
+    once.  Returns (v, s, converged)."""
     n = col.shape[0]
 
     def op(z):
         return torch.cat([Jd(z[:n]) + z[n] * col,
-                          torch.dot(row, z[:n]).reshape(1)])
+                          global_dot(row, z[:n]).reshape(1)])
 
     if rhs_top is None:
         rhs_top = torch.zeros((n,), dtype=col.dtype, device=col.device)
@@ -122,9 +132,9 @@ def solve_bordered_ext(Jd, col, row, gmres, rhs_top=None, rhs_bot=1.0,
 
         def op_lo(z):
             return torch.cat([Jd_lo(z[:n]) + z[n] * col_lo,
-                              torch.dot(row_lo, z[:n]).reshape(1)])
+                              global_dot(row_lo, z[:n]).reshape(1)])
 
-        sol, cv = _ir_solve(op, op_lo, rhs, gm_lo, lo)
+        sol, cv = _ir_solve(op, op_lo, rhs, gm_lo, lo, n_rep=1)
         return sol[:n], sol[n], cv
     sol, cv, _ = gmres(op, rhs)
     return sol[:n], sol[n], cv
@@ -182,8 +192,9 @@ def _cast_tree(tree, dt):
 def _make_ma_gmres(precond, n: int, k: int, opts: Optional[dict]):
     """GMRES for the extended systems: k = 1 the n + 1 bordered system,
     k = 2 the real-embedded 2n + 2 one, with the inner preconditioner
-    extended blockwise."""
-    o = dict(restart=40, maxiter=240, rtol=1e-10, atol=1e-14)
+    extended blockwise; the k scalar slots are the flat vector's
+    replicated tail on a partitioned state (`GMRES.n_rep`)."""
+    o = dict(restart=40, maxiter=240, rtol=1e-10, atol=1e-14, n_rep=k)
     if opts:
         o.update(opts)
     pext = ext_precond(precond, n) if k == 1 else ext_precond2(precond, n)
@@ -245,8 +256,14 @@ def _d_dp(fn, p):
 
 
 def _grad_x_pairing(prob, x, unravel, params, vs, ws):
-    """grad_x sum_k <w_k, J(x) v_k> for the pairs (v_k, w_k): one vjp
-    through the jvp of F."""
+    """grad_x sum_k <w_k, J(x) v_k> for the pairs (v_k, w_k): the model's
+    closed form (`grad_pairing`) where it gives one, else one vjp through
+    the jvp of F."""
+    hook = getattr(prob, "grad_pairing", None)
+    if hook is not None:
+        return ravel(hook(unravel(x), params, [unravel(v) for v in vs],
+                          [unravel(w) for w in ws]))[0]
+
     def jvs(xf):
         xx = unravel(xf)
         return torch.stack([_jv_of_F(prob, xx, params, unravel(v))
@@ -254,6 +271,31 @@ def _grad_x_pairing(prob, x, unravel, params, vs, ws):
 
     _, fn = vjp(jvs, x)
     return fn(torch.stack(ws))[0]
+
+
+def _param_hook(prob, lens, which: int):
+    """The model's closed-form dF/dp (which = 0) or d(J.v)/dp (which = 1)
+    for the parameter `lens` names (`param_derivs`), or None."""
+    pair = (getattr(prob, "param_derivs", None) or {}).get(lens.name)
+    return None if pair is None else pair[which]
+
+
+def _dF_dp(prob, xs, lens, at, p):
+    """dF/dp at p, the parameters `at(p)`: the model's closed form where
+    it gives one, else one jvp of F."""
+    hook = _param_hook(prob, lens, 0)
+    if hook is not None:
+        return ravel(hook(xs, at(p)))[0]
+    return _d_dp(lambda pp: ravel(prob.F(xs, at(pp)))[0], p)
+
+
+def _dJv_dp(prob, xs, lens, at, p, vs):
+    """d(J(xs) vs)/dp at p, the parameters `at(p)`: the model's closed
+    form where it gives one, else a jvp in p of the jvp of F."""
+    hook = _param_hook(prob, lens, 1)
+    if hook is not None:
+        return ravel(hook(xs, at(p), vs))[0]
+    return _d_dp(lambda pp: _jv_of_F(prob, xs, at(pp), vs), p)
 
 
 def _p_tensor(p, like):
@@ -383,17 +425,19 @@ def fold_ma_problem_mf(prob: BifurcationProblem, lens1, lens2,
         # both taken from F (ref the Govaerts hessian terms,
         # src/codim2/MinAugFold.jl:119-208)
         sigma_x = -_grad_x_pairing(prob, x, unravel, params, [v], [w])
-        vs = unravel(v)
-        sigma_p1 = -torch.dot(w, _d_dp(lambda pp: _jv_of_F(
-            prob, xs, inner_lens.set(par["_inner"], pp), vs), p1))
-        Fp1 = _d_dp(lambda pp: ravel(prob.F(
-            xs, inner_lens.set(par["_inner"], pp)))[0], p1)
+
+        def at_p1(pp):
+            return inner_lens.set(par["_inner"], pp)
+
+        sigma_p1 = -global_dot(w, _dJv_dp(prob, xs, inner_lens, at_p1, p1,
+                                          unravel(v)))
+        Fp1 = _dF_dp(prob, xs, inner_lens, at_p1, p1)
         Jd = _jd(prob, xs, params)
 
         def apply(d):
             dx, dp1 = d[:n], d[n]
             return torch.cat([Jd(dx) + dp1 * Fp1,
-                              (torch.dot(sigma_x, dx)
+                              (global_dot(sigma_x, dx)
                                + sigma_p1 * dp1).reshape(1)])
 
         Jd_lo, _ = lo_twins(xs, params, X)
@@ -404,7 +448,7 @@ def fold_ma_problem_mf(prob: BifurcationProblem, lens1, lens2,
         def apply_lo(d):
             dx, dp1 = d[:n], d[n]
             return torch.cat([Jd_lo(dx) + dp1 * Fp1_lo,
-                              (torch.dot(sx_lo, dx)
+                              (global_dot(sx_lo, dx)
                                + sp1_lo * dp1).reshape(1)])
 
         return PairedOperator(apply, FlatOperator(apply_lo, n + 1, lo,
@@ -419,15 +463,13 @@ def fold_ma_problem_mf(prob: BifurcationProblem, lens1, lens2,
         def at_p2(pp):
             return inner_lens.set(outer_lens.set(par["_inner"], pp), p1)
 
-        Fp2 = _d_dp(lambda pp: ravel(prob.F(xs, at_p2(pp)))[0], p2)
-        vs = unravel(v)
-        dhs = torch.dot(w, _d_dp(lambda pp: _jv_of_F(prob, xs, at_p2(pp),
-                                                     vs), p2))
+        Fp2 = _dF_dp(prob, xs, outer_lens, at_p2, p2)
+        dhs = global_dot(w, _dJv_dp(prob, xs, outer_lens, at_p2, p2,
+                                    unravel(v)))
         return torch.cat([Fp2, (-dhs).reshape(1)])
 
     def record(X, p2, **k):
-        return {"param": p2, "p1": X[n],
-                "norm": torch.linalg.vector_norm(X[:n])}
+        return {"param": p2, "p1": X[n], "norm": global_norm(X[:n])}
 
     def eig_jacobian(X, par):
         _, _, xs, params = at_point(X, par)
@@ -435,8 +477,7 @@ def fold_ma_problem_mf(prob: BifurcationProblem, lens1, lens2,
 
     def _anchors_raw(X, par):
         v, sig, w = _vw(X, par)
-        return (v / torch.linalg.vector_norm(v),
-                w / torch.linalg.vector_norm(w), sig)
+        return v / global_norm(v), w / global_norm(w), sig
 
     anchors_kernel = _memo_anchors(_anchors_raw, ("_a", "_b"))
 

@@ -91,6 +91,32 @@ def global_norm(x: torch.Tensor, n_rep: int = 0) -> torch.Tensor:
     return torch.sqrt(global_dot(x, x, n_rep))
 
 
+def global_bdot(V: torch.Tensor, W: torch.Tensor,
+                n_rep: int = 0) -> torch.Tensor:
+    """The batched projections `V[c] @ W[c]` ((k, j, n) and (k, n) in,
+    (k, j) out) over the ranks' flat blocks, the last `n_rep` entries of
+    each row counted once; `torch.bmm` on one device."""
+    def bdot(a, b):
+        return torch.bmm(a, b[:, :, None])[:, :, 0]
+
+    if _REDUCER is None:
+        return bdot(V, W)
+    if n_rep == 0:
+        return _REDUCER.reduce(bdot(V, W), "sum")
+    k = W.shape[1] - n_rep
+    return (_REDUCER.reduce(bdot(V[..., :k], W[:, :k]), "sum")
+            + bdot(V[..., k:], W[:, k:]))
+
+
+def global_row_norms(W: torch.Tensor, n_rep: int = 0) -> torch.Tensor:
+    """The 2-norm of each row of a (k, n) stack of flat blocks over all
+    ranks, the last `n_rep` entries of each counted once
+    (`torch.linalg.vector_norm(W, dim=1)` on one device)."""
+    if _REDUCER is None:
+        return torch.linalg.vector_norm(W, dim=1)
+    return torch.sqrt(global_bdot(W[:, None, :], W, n_rep)[:, 0])
+
+
 def local_randn(gen: torch.Generator, n: int, dtype, device) -> torch.Tensor:
     """n normal draws from `gen`; with a reducer, this rank's slice of one
     draw over all ranks' entries, so the ranks start from the vector one

@@ -20,8 +20,9 @@ from typing import Any, Callable, Optional
 import numpy as np
 import torch
 
-from ..core.state import (BorderedState, check_partition, global_dot,
-                          global_norm, global_size, ravel, tree_axpby)
+from ..core.state import (BorderedState, check_partition, global_bdot,
+                          global_dot, global_norm, global_row_norms,
+                          global_size, ravel, tree_axpby)
 
 
 # ---------------------------------------------------------------------------
@@ -109,20 +110,31 @@ def _sequential_solve_two(solver, J, r1, r2, a0=0.0, a1=1.0):
 @dataclasses.dataclass(frozen=True)
 class GMRES:
     """Restarted GMRES (CGS2 Arnoldi + Givens least squares) with a
-    preallocated `(restart+1, n)` Krylov basis on the device."""
+    preallocated `(restart+1, n)` Krylov basis on the device.
+
+    On a row-partitioned state (inside `parallel.use_mesh`) each rank
+    holds its block of the raveled vector and every projection, norm and
+    size is completed over the ranks.  Entries that every rank holds
+    whole (a replicated tail) must count once: `n_rep` names how many of
+    the raveled vector's last entries are such a tail, for a plain flat
+    vector such as the MA problems' [x; p1] or the extended [v; s]
+    (`codim2/minaug_mf.py` sets it); a `BorderedState`'s `p` adds its
+    own entries to it.  The same holds for each row of `solve_block`.
+    Without a reducer (one device) `n_rep` changes nothing."""
 
     restart: int = 30
     maxiter: int = 200           # total matvecs bound
     rtol: float = 1e-8
     atol: float = 1e-12
     precond: Optional[Callable] = None   # left preconditioner: v -> M^{-1} v
+    n_rep: int = 0               # replicated tail of a partitioned vector
 
     def __call__(self, J, rhs, a0=0.0, a1=1.0):
         flat_rhs, unravel = ravel(rhs)
         # a bordered state ravels to [u; p]: on a row-partitioned state its
         # p is the same on every rank and enters each reduction once
-        n_rep = (ravel(rhs.p)[0].numel() if isinstance(rhs, BorderedState)
-                 else 0)
+        n_rep = self.n_rep + (ravel(rhs.p)[0].numel()
+                              if isinstance(rhs, BorderedState) else 0)
 
         def matvec(xf):
             return ravel(shifted_apply(J, unravel(xf), a0, a1))[0]
@@ -166,11 +178,13 @@ class GMRES:
                 return prec(matvec(Xb))
 
             X, res, it = _gmres_block(matvec_p, prec(rhs), self.restart,
-                                      self.maxiter, self.rtol, self.atol)
+                                      self.maxiter, self.rtol, self.atol,
+                                      self.n_rep)
         else:
             X, res, it = _gmres_block(matvec, rhs, self.restart,
-                                      self.maxiter, self.rtol, self.atol)
-        b_norm = torch.linalg.vector_norm(rhs, dim=1).cpu().numpy()
+                                      self.maxiter, self.rtol, self.atol,
+                                      self.n_rep)
+        b_norm = global_row_norms(rhs, self.n_rep).cpu().numpy()
         return X, res <= np.maximum(self.rtol * b_norm, self.atol), it
 
 
@@ -256,7 +270,7 @@ def _gmres_flat(matvec, b, restart, maxiter, rtol, atol, n_rep=0):
     return x, res, nmv
 
 
-def _gmres_block(matvec_block, B, restart, maxiter, rtol, atol):
+def _gmres_block(matvec_block, B, restart, maxiter, rtol, atol, n_rep=0):
     """Restarted GMRES on the k right-hand sides in the rows of B (k, n) at
     once.  Each column keeps its own Krylov basis, Givens rotations,
     residual estimate and matvec count, and stops exactly where
@@ -268,15 +282,19 @@ def _gmres_block(matvec_block, B, restart, maxiter, rtol, atol):
     projections run as batched products over the running columns; the
     Givens updates run on the host, vectorized over the columns, in the
     working dtype.  Returns (X, final_resnorms, n_matvecs) with numpy
-    arrays of one entry per column."""
-    check_partition(False, "block GMRES")
+    arrays of one entry per column.
+
+    On a row-partitioned state (`parallel.use_mesh`) B holds this rank's
+    block of each row, the projections and norms are completed over the
+    ranks (each row's last `n_rep` entries counted once), and every host
+    decision (the columns still running, the frozen ones, the restarts)
+    reads those reduced values, the same on every rank."""
     k, n = B.shape
     dtype, dev = B.dtype, B.device
     npdt = _torch_to_np_dtype(dtype)
     tiny = float(torch.finfo(dtype).tiny)
-    m = min(restart, n)
-    b_norm = torch.linalg.vector_norm(B, dim=1).cpu().numpy().astype(
-        np.float64)
+    m = min(restart, global_size(n, n_rep))
+    b_norm = global_row_norms(B, n_rep).cpu().numpy().astype(np.float64)
     tol = np.maximum(rtol * b_norm, atol)
 
     X = torch.zeros_like(B)
@@ -290,7 +308,7 @@ def _gmres_block(matvec_block, B, restart, maxiter, rtol, atol):
             break
         ci = torch.as_tensor(cols, device=dev)
         R0 = B[ci] - matvec_block(X[ci])
-        beta_t = torch.linalg.vector_norm(R0, dim=1)
+        beta_t = global_row_norms(R0, n_rep)
         beta = beta_t.cpu().numpy().astype(np.float64)
         V[ci, 0] = torch.where(beta_t[:, None] > 0,
                                R0 / torch.clamp_min(beta_t, tiny)[:, None],
@@ -311,11 +329,11 @@ def _gmres_block(matvec_block, B, restart, maxiter, rtol, atol):
             W = matvec_block(V[rows, j])
             # CGS2 on each running column's j+1 filled basis rows
             Vj = V[rows, :j + 1]
-            h1 = torch.bmm(Vj, W[:, :, None])[:, :, 0]
+            h1 = global_bdot(Vj, W, n_rep)
             W = W - torch.bmm(h1[:, None, :], Vj)[:, 0]
-            h2 = torch.bmm(Vj, W[:, :, None])[:, :, 0]
+            h2 = global_bdot(Vj, W, n_rep)
             W = W - torch.bmm(h2[:, None, :], Vj)[:, 0]
-            hlast_t = torch.linalg.vector_norm(W, dim=1)
+            hlast_t = global_row_norms(W, n_rep)
             V[rows, j + 1] = torch.where(
                 hlast_t[:, None] > tiny,
                 W / torch.clamp_min(hlast_t, tiny)[:, None], 0.0)

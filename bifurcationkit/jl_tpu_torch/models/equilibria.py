@@ -235,7 +235,10 @@ def stuart_landau(r: float = 0.5, mu: float = 0.1, nu: float = 1.0,
 
 def _brusselator_terms(B: int, h: float, halo: Callable = None):
     """F, the closed-form J.v and dF/dl of the 1D Brusselator on B sites
-    whose state is the flat [u; v] (a leading batch broadcasts).  The
+    whose state is the flat [u; v] (a leading batch broadcasts), and the
+    closed-form hooks (d2F, and what the matrix-free codim-2 layer
+    otherwise takes by AD: J^T.v, the pairing gradient, dF/dp and
+    d(J.v)/dp for the lenses l and beta; `parallel/models.py`).  The
     second difference of the stacked (..., 2, B) species takes its sites
     past each end from `halo(x)` -> (previous, next), each (..., 2, 1) or
     None; None (and `halo=None`, the whole domain on one device) puts the
@@ -294,7 +297,69 @@ def _brusselator_terms(B: int, h: float, halo: Callable = None):
         k = -2.0 / par["l"]
         return torch.cat([k * c1 * L[..., 0, :], k * c2 * L[..., 1, :]], -1)
 
-    return F, jac_op, dFdp
+    def jac_adjoint(uv, par):
+        """J(uv)^T w: the second difference is symmetric, the reaction
+        block transposed per site."""
+        b = par["beta"]
+        c1, c2 = coefs(par)
+        u, v = uv[..., :B], uv[..., B:]
+        uv2, uu = 2 * u * v, u * u
+
+        def op(w):
+            L = lap(w, None)
+            wu, wv = w[..., :B], w[..., B:]
+            gu = c1 * L[..., 0, :] + (uv2 - (b + 1)) * wu + (b - uv2) * wv
+            gv = c2 * L[..., 1, :] + uu * (wu - wv)
+            return torch.cat([gu, gv], -1)
+
+        return op
+
+    def grad_pairing(uv, par, vs, ws):
+        """grad_uv sum_k <w_k, J(uv) v_k>: only the reaction term u^2 v
+        depends on the state, site by site (no halo)."""
+        u, v = uv[..., :B], uv[..., B:]
+        gu = torch.zeros_like(u)
+        gv = torch.zeros_like(v)
+        for d, w in zip(vs, ws):
+            q = w[..., :B] - w[..., B:]
+            du, dv = d[..., :B], d[..., B:]
+            gu = gu + q * 2 * (v * du + u * dv)
+            gv = gv + q * 2 * u * du
+        return torch.cat([gu, gv], -1)
+
+    def dJv_dl(uv, par, w):
+        c1, c2 = coefs(par)
+        L = lap(w, None)
+        k = -2.0 / par["l"]
+        return torch.cat([k * c1 * L[..., 0, :], k * c2 * L[..., 1, :]], -1)
+
+    def dF_dbeta(uv, par):
+        """dF/dbeta: the reaction's -u and u, and the v boundary value
+        beta / alpha entering the end sites' second difference."""
+        c2 = coefs(par)[1]
+        u = uv[..., :B]
+        e = torch.stack([torch.zeros_like(par["alpha"]),
+                         1.0 / par["alpha"]]).reshape(2, 1)
+        Le = lap(torch.zeros_like(uv), e)
+        return torch.cat([-u, u + c2 * Le[..., 1, :]], -1)
+
+    def dJv_dbeta(uv, par, w):
+        du = w[..., :B]
+        return torch.cat([-du, du], -1)
+
+    def d2F(uv, par, a, b):
+        """d2F(uv)[a, b] in closed form: only the cubic reaction term
+        u^2 v is nonlinear; batches broadcast."""
+        u, v = uv[..., :B], uv[..., B:]
+        au, av, bu, bv = a[..., :B], a[..., B:], b[..., :B], b[..., B:]
+        q = 2 * v * au * bu + 2 * u * (au * bv + av * bu)
+        return torch.cat([q, -q], -1)
+
+    hooks = {"d2F": d2F, "jac_adjoint": jac_adjoint,
+             "grad_pairing": grad_pairing,
+             "param_derivs": {"l": (dFdp, dJv_dl),
+                              "beta": (dF_dbeta, dJv_dbeta)}}
+    return F, jac_op, dFdp, hooks
 
 
 def brusselator_1d(n: int = 100, alpha: float = 2.0, beta: float = 5.45,
@@ -310,24 +375,17 @@ def brusselator_1d(n: int = 100, alpha: float = 2.0, beta: float = 5.45,
     broadcasting, which the periodic orbits' batched and variational
     routes use; by default the problem has none of them."""
     dev = resolve_device(device)
-    F, jac_op, _ = _brusselator_terms(n, 1.0 / n)
+    F, jac_op, _, hooks = _brusselator_terms(n, 1.0 / n)
     u0 = torch.cat([torch.full((n,), alpha, dtype=dtype, device=dev),
                     torch.full((n,), beta / alpha, dtype=dtype, device=dev)])
     params = _params({"alpha": alpha, "beta": beta, "D1": D1, "D2": D2,
                       "l": l}, dtype, dev)
 
-    def d2F(uv, par, a, b):
-        """d2F(uv)[a, b] in closed form: only the cubic reaction term
-        u^2 v is nonlinear; batches broadcast."""
-        u, v = uv[..., :n], uv[..., n:]
-        au, av, bu, bv = a[..., :n], a[..., n:], b[..., :n], b[..., n:]
-        q = 2 * v * au * bu + 2 * u * (au * bv + av * bu)
-        return torch.cat([q, -q], -1)
-
     if not batched:
         return BifurcationProblem(F, u0=u0, params=params, lens="l")
     return _batched(BifurcationProblem(F, u0=u0, params=params, lens="l",
-                                       jac_op=jac_op, d2F_user=d2F))
+                                       jac_op=jac_op,
+                                       d2F_user=hooks["d2F"]))
 
 
 def lorenz84(params=None, device=None, dtype: torch.dtype = DEFAULT_DTYPE):

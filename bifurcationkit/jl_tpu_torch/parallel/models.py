@@ -2,17 +2,20 @@
 block of the state, and F and J.v exchange their halos explicitly
 (`halo.py`), so that inside `use_mesh(mesh)` the solver stack runs the
 JAX package's automatically sharded path (`__graft_entry__.py::
-dryrun_multichip`, legs 1, 2 and 4) as rank-local code.
+dryrun_multichip`, legs 1, 2, 4, 6 and 7) as rank-local code.
 
 * `swift_hohenberg_2d_sharded`: the rows of `models.swift_hohenberg_2d`
   (Neumann), F and J.v through `sharded_sh_jv_local`, so on the card
   every product launches `sh_jv`'s halo closure;
 * `brusselator_1d_sharded`: the sites of `models.brusselator_1d`, each
   rank's block the (u, v) pairs of its sites, through the model's own F,
-  J.v and dF/dl with a one-site halo of both species.
+  J.v and dF/dl with a one-site halo of both species, a batched form
+  for the periodic orbits, and closed-form J^T.v, pairing gradient and
+  parameter derivatives for the matrix-free codim-2 layer.
 
-Both give dF/dp in closed form: forward AD through a halo exchange would
-send a dual tensor.  Each carries `n_global`, the whole state's size,
+Both give their derivatives in closed form: forward or reverse AD through
+a halo exchange would send a dual tensor.  Each carries `n_global`, the
+whole state's size,
 which the continuation kernels normalise by.  The spectral
 preconditioners are not sharded (the JAX dry run runs plain GMRES for
 the same reason).
@@ -90,19 +93,36 @@ def brusselator_1d_sharded(mesh: DeviceMesh, n: int = 100,
                            D1: float = 0.008, D2: float = 0.004,
                            l: float = 0.3, device=None,
                            dtype: torch.dtype = DEFAULT_DTYPE,
-                           axis: str = "space") -> BifurcationProblem:
+                           axis: str = "space",
+                           batched: bool = False) -> BifurcationProblem:
     """This rank's sites (`torch.chunk` of the n sites over the ranks of
     `axis`) of `models.brusselator_1d(n, ...)`: its state is the flat
     [u_loc; v_loc] of its B sites, and F, J.v and dF/dl are the model's
     own (`_brusselator_terms`) with one site of u and v exchanged with
-    each neighbour; the Dirichlet values enter at the global ends."""
+    each neighbour; the Dirichlet values enter at the global ends.
+
+    `batched=True` marks F and J.v as taking a leading batch of rows,
+    which cross in one halo exchange (the periodic orbits' batched route,
+    as `brusselator_1d(batched=True)` on one device), and adds the closed
+    form d2F, which is local.  Either form carries the closed-form hooks
+    of what the matrix-free codim-2 layer and the trapezoid monodromy
+    take by AD on one device: `jac_adjoint` (J^T.v, one halo exchange),
+    `grad_pairing` (grad_x sum_k <w_k, J(x) v_k>, local) and
+    `param_derivs` (dF/dp and d(J.v)/dp for the lenses l and beta)."""
     dev = resolve_device(device)
-    glob = brusselator_1d(n, alpha, beta, D1, D2, l, device=dev, dtype=dtype)
+    glob = brusselator_1d(n, alpha, beta, D1, D2, l, device=dev, dtype=dtype,
+                          batched=batched)
     u0 = local_block(mesh, glob.u0.reshape(2, n), axis, 1).reshape(-1)
-    F, jac_op, dFdp = _brusselator_terms(
+    F, jac_op, dFdp, hooks = _brusselator_terms(
         u0.shape[0] // 2, 1.0 / n,
         halo=lambda x: post_halo(mesh, x, 1, axis).wait())
-    return _partitioned(
-        BifurcationProblem(F, u0=u0, params=glob.params, lens="l",
-                           jac_op=jac_op, dFdp_user=dFdp,
-                           record_from_solution=_record), glob)
+    prob = BifurcationProblem(
+        F, u0=u0, params=glob.params, lens="l", jac_op=jac_op,
+        jac_adjoint=hooks["jac_adjoint"], dFdp_user=dFdp,
+        d2F_user=hooks["d2F"] if batched else None,
+        record_from_solution=_record)
+    for name in ("grad_pairing", "param_derivs"):
+        object.__setattr__(prob, name, hooks[name])
+    if batched:
+        object.__setattr__(prob, "batched_F", True)
+    return _partitioned(prob, glob)

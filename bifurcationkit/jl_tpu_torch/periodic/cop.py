@@ -138,22 +138,38 @@ def _external_matrix(blocks: COPBlocks, H, k, kp=None, dR_per=None,
                      dR_phase=None, border_row=None):
     """Assemble the (rhs-independent) external matrix on the boundary
     unknowns y = [du_0..du_Ntst, dT (, dp)] (ref build_external_system!,
-    cop.jl:322).  Rows: Ntst coupling blocks du_{j+1} - S_j du_j - t_j dT
-    (- tp_j dp), n periodicity rows, the phase row, and optionally the
-    PALC arclength row pre-reduced over the local unknowns."""
-    n, Ntst = blocks.n, blocks.Ntst
+    cop.jl:322) from stage 1's reduced couplings (`assemble_external`)."""
+    n = blocks.n
     bordered = border_row is not None
-    S = -H[:, -n:, :]
-    t = -k[:, -n:]
+    return assemble_external(
+        -H[:, -n:, :], -k[:, -n:],
+        blocks.phi0 - torch.einsum("jr,jrn->jn", blocks.phiI, H),
+        -torch.sum(blocks.phiI * k),
+        tp=kp[:, -n:] if bordered else None,
+        ph_p=(-torch.sum(blocks.phiI * kp) + dR_phase) if bordered
+        else None, dR_per=dR_per, border_row=border_row)
+
+
+def assemble_external(S, t, ph_du, ph_T, tp=None, ph_p=None, dR_per=None,
+                      border_row=None):
+    """The external matrix from each interval's boundary map
+    du_{j+1} = S_j du_j + t_j dT [- tp_j dp] + ... (S (Ntst, n, n), t and
+    tp (Ntst, n)) and the phase row reduced over the local unknowns
+    (ph_du (Ntst, n) on du_0..du_{Ntst-1}, ph_T on dT, ph_p on dp).  Rows:
+    Ntst coupling blocks du_{j+1} - S_j du_j - t_j dT (- tp_j dp), n
+    periodicity rows, the phase row, and optionally the PALC arclength
+    row pre-reduced over the local unknowns (`border_row`)."""
+    Ntst, n = t.shape
+    bordered = border_row is not None
     nb = (Ntst + 1) * n
     Next = nb + 1 + (1 if bordered else 0)
-    A = torch.zeros((Next, Next), dtype=H.dtype, device=H.device)
-    eye = torch.eye(n, dtype=H.dtype, device=H.device)
+    A = torch.zeros((Next, Next), dtype=S.dtype, device=S.device)
+    eye = torch.eye(n, dtype=S.dtype, device=S.device)
 
     # the coupling block rows, scattered through a (Ntst, n, Ntst+1, n)
     # view of A's top-left corner
     C = A[:Ntst * n, :nb].unflatten(0, (Ntst, n)).unflatten(2, (Ntst + 1, n))
-    jidx = torch.arange(Ntst, device=H.device)
+    jidx = torch.arange(Ntst, device=S.device)
     C[jidx, :, jidx, :] = -S
     C[jidx, :, jidx + 1, :] = eye
     A[:Ntst * n, nb] = -t.reshape(-1)
@@ -162,15 +178,14 @@ def _external_matrix(blocks: COPBlocks, H, k, kp=None, dR_per=None,
 
     # the phase row after substituting the local unknowns:
     # coeff(du_j) = phi0_j - phiI_j H_j; coeff(dT) = sum_j -phiI_j k_j
-    A[nb, :Ntst * n] = (blocks.phi0 - torch.einsum(
-        "jr,jrn->jn", blocks.phiI, H)).reshape(-1)
-    A[nb, nb] = -torch.sum(blocks.phiI * k)
+    A[nb, :Ntst * n] = ph_du.reshape(-1)
+    A[nb, nb] = ph_T
 
     if bordered:
         pcol = Next - 1
-        A[:Ntst * n, pcol] = kp[:, -n:].reshape(-1)
+        A[:Ntst * n, pcol] = tp.reshape(-1)
         A[Ntst * n:nb, pcol] = dR_per
-        A[nb, pcol] = -torch.sum(blocks.phiI * kp) + dR_phase
+        A[nb, pcol] = ph_p
         A[pcol, :] = border_row
     return A
 

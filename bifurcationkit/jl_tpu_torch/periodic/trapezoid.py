@@ -39,9 +39,15 @@ def F_batch(prob_vf, U, params):
 def jv_batch(prob_vf, X, params, V):
     """J(X_i) V_i for each row: X (k, n) or (n,) broadcast, V (k, n).
     A batched model's `jac_op` takes the rows in one call; otherwise J.v
-    is the jvp of F."""
+    is the jvp of F, which a row-partitioned model (`n_global`) refuses:
+    its dual would cross the halo exchange."""
     if prob_vf.jac_op is not None and getattr(prob_vf, "batched_F", False):
         return prob_vf.jac_op(X, params)(V)
+    if getattr(prob_vf, "n_global", None) is not None:
+        raise NotImplementedError(
+            "a row-partitioned model needs a batched jac_op here "
+            "(e.g. brusselator_1d_sharded(..., batched=True)): forward AD "
+            "would cross its halo exchange")
     X = X.expand_as(V).contiguous()     # a dual needs its own storage
     return jvp(lambda Y: F_batch(prob_vf, Y, params), (X,), (V,))[1]
 
@@ -173,7 +179,11 @@ class Trapeze:
         by an iterative solve, for a whole (k, n) block of vectors at once
         (the operator's `block`; each slice one batched GMRES solve when
         the solver has `solve_block`).  `linsolver` defaults to plain
-        GMRES; pass a preconditioned one for stiff operators."""
+        GMRES; pass a preconditioned one for stiff operators.  On a
+        row-partitioned model (`parallel/models.py`, batched) inside
+        `parallel.use_mesh` X holds this rank's block of every slice and
+        the operator applies to this rank's block of v: the J.v rows
+        exchange their halos and block GMRES reduces over the ranks."""
         ls = linsolver or GMRES(restart=30, maxiter=120, rtol=1e-9)
         params = po_par["_inner"]
         n = po_par["_uref"].shape[1]

@@ -29,22 +29,31 @@ Phases, one line each (a failing phase raises and the script exits non-zero):
    every batch size the `parallel` phase launches and one past it;
 3b. `parallel`, the multi-device path (jl_tpu_torch/parallel): 2 ranks
    on the one card, spawned as processes of their own in one gloo group;
-   gloo moves CPU tensors only, so halos and reductions go through pinned
-   host buffers while every kernel and all compute stay on the card (no
-   GPU-to-GPU collective is exercised). Each rank runs legs 1, 2 and 4 of
-   the dry run (parallel/dryrun.py, after __graft_entry__.py::
+   gloo moves CPU tensors only, so halos, reductions and gathers go
+   through pinned host buffers while every kernel and all compute stay on
+   the card (no GPU-to-GPU collective is exercised). Each rank runs legs
+   1-7 of the dry run (parallel/dryrun.py, after __graft_entry__.py::
    dryrun_multichip): the Brusselator Newton and PALC corrector (and one
    more on a secant tangent whose u-part is not zero), 3 SH2d
-   steps with detection, and at the flagship's 152x100 the halo'd J.v
-   against the single-device one (1e-10) and one continuation step with
-   detection, every J.v through `sh_jv`'s halo closure; then the
-   row-partitioned DIA SpMV at the Brusselator path's shape against the
-   single-device kernel and the plain version (1e-12). The same legs on
-   one device on the card: p to 1e-8, the same detection counts, leg 1's
-   states to 1e-8. Prints the seconds per leg, the Newton and GMRES
-   iterations, the transport and the halo launches by (dtype, K); fails
-   on a (dtype, K) that compare_halo does not check, or if a rank fails.
-   compare_halo and parallel take at most 60 s together (printed);
+   steps with detection, the time-sharded COP solve and monodromy tree
+   product of the Stuart-Landau PO (leg 3), at the flagship's 152x100
+   the halo'd J.v against the single-device one (1e-10) and one
+   continuation step with detection, every J.v through `sh_jv`'s halo
+   closure (leg 4), the time-sharded PO-MA corrector solve of the
+   zero-Hopf NS problem (leg 5), the Brusselator PO's COP solve on a
+   2 x 1 time x space mesh and its space-sharded matrix-free trapezoid
+   monodromy apply (leg 6), and the sharded matrix-free fold MA sigma
+   system and Govaerts apply (leg 7); then the row-partitioned DIA SpMV
+   at the Brusselator path's shape against the single-device kernel and
+   the plain version (1e-12). A second spawn of 4 ranks on the card runs
+   leg 6 on a real 2 x 2 mesh. The same legs on one device on the card:
+   legs 1, 2, 4: p to 1e-8, the same detection counts, leg 1's states to
+   1e-8; legs 3, 5-7 (and leg 6 at 2 x 2): every solution and apply to
+   1e-8 relative, the same GMRES iterations, and neither kernel launched.
+   Prints the seconds per leg, each spawn's start time, the Newton and
+   GMRES iterations, the transport and the halo launches by (dtype, K);
+   fails on a (dtype, K) that compare_halo does not check, or if a rank
+   fails. compare_halo and parallel take at most 90 s together (printed);
 4. main paths, each with every kernel's launch count reset just before it
    and read just after:
    a. the SH2d-fronts flagship at 151x100 — Newton, then PALC through
@@ -4328,7 +4337,8 @@ def io_native(shp_branch, sh1d_branch):
 # ---------------------------------------------------------------------------
 
 PARALLEL_RANKS = 2
-PARALLEL_BUDGET_S = 60     # compare_halo and parallel together
+MESH_2D = (2, 2)           # the second spawn's time x space mesh (4 ranks)
+PARALLEL_BUDGET_S = 90     # compare_halo and parallel together
 # (shape, row blocks) of compare_halo: the dry run's 152 x 100 (leg 4) in
 # 2, 4 and 8 blocks, a ragged 37 x 23 in 3, and 6 x 23 in 3 blocks of 2
 # rows; each at every batch size of HALO_KS
@@ -4374,11 +4384,13 @@ def compare_halo():
     return worst, checked
 
 
-def parallel_rank(n_ranks):
+def parallel_rank(n_ranks, t_spawn):
     """One rank of the `parallel` phase, in a process of its own that
-    `parallel` spawns: dry-run legs 1, 2 and 4 on the card, then the
+    `parallel` spawns: dry-run legs 1-7 on the card, then the
     row-partitioned DIA SpMV at the Brusselator path's shape against the
-    single-device product.  Returns the rank's numbers."""
+    single-device product.  Returns the rank's numbers, with the seconds
+    from the spawn to the rank's start."""
+    started = time.time() - t_spawn
     from bifurcationkit.jl_tpu_torch.parallel import (
         dryrun, full_state, make_mesh, sharded_dia_spmv)
 
@@ -4398,34 +4410,93 @@ def parallel_rank(n_ranks):
                       max_abs_err_plain=float((got - plain).abs().max()),
                       scale=float(ref.abs().max()))
     out["device"] = torch.cuda.get_device_name(0)
+    out["start_s"] = started
     return out
+
+
+def parallel_rank_2d(nt, ns, t_spawn):
+    """One rank of the `parallel` phase's second spawn: dry-run leg 6 on a
+    real (nt, ns) time x space mesh of nt ns ranks on the one card."""
+    started = time.time() - t_spawn
+    from bifurcationkit.jl_tpu_torch.parallel import dryrun
+
+    torch.cuda.set_device(0)
+    out = dryrun.dryrun_mesh2d(nt, ns, "cuda")
+    out["device"] = torch.cuda.get_device_name(0)
+    out["start_s"] = started
+    return out
+
+
+def _rel(a, b):
+    """||a - b|| / ||b||, the dry run's relative error."""
+    a, b = np.asarray(a), np.asarray(b)
+    return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-300))
+
+
+# per new leg: the arrays held to one device on the card to 1e-8 relative
+# (the JAX dry run's bound) and the counts that must equal one device's
+NEW_LEG_CHECKS = {
+    "leg3": (("x", "M"), ()),
+    "leg5": (("x", "u_po"), ("newton_it",)),
+    "leg6": (("x", "monodromy_apply"), ("gmres_it",)),
+    "leg7": (("v", "w", "apply", "sigma"),
+             ("sigma_gmres_matvecs", "adjoint_gmres_matvecs"))}
+
+
+def _check_new_leg(r, leg, got, ref, launches):
+    """Leg 3, 5, 6 or 7 of rank r against one device: within 1e-8, the
+    same iteration counts, no kernel launched.  Returns its row."""
+    arrays, counts = NEW_LEG_CHECKS[leg]
+    gaps = {k: _rel(got[k], ref[k]) for k in arrays}
+    row = dict(rel_err=gaps, launches=launches,
+               **{k: got[k] for k in counts})
+    bad = {k: g for k, g in gaps.items() if not g <= 1e-8}
+    bad.update({k: (got[k], ref[k]) for k in counts if got[k] != ref[k]})
+    if any(launches.values()):
+        bad["launches"] = launches
+    if bad:
+        raise AssertionError(f"rank {r}: {leg} against one device on the "
+                             f"card: {bad}")
+    return row
 
 
 def parallel():
     """The multi-device path on the one card: PARALLEL_RANKS ranks spawned
     as processes of their own (gloo, halos and reductions through pinned
-    host buffers; every kernel and all compute on the card), legs 1, 2 and
-    4 of the dry run (leg 4 at 152 x 100) and the sharded DIA SpMV; then
-    the same legs single-device on the card.  Checks: every rank
-    converged; leg 4's halo'd J.v within 1e-10 of the single-device one;
-    each leg's p within 1e-8 of the single device's, the same detection
-    counts, leg 1's states, its secant tangent and the secant corrector's
-    p within 1e-8; the DIA product within 1e-12 of
-    the single-device kernel's and of the plain version (relative to its
-    max); the halo closure and dia_spmv launched on every rank.  Returns
-    (halo launches by (dtype, K) over the ranks, dia_spmv launches over
-    the ranks)."""
+    host buffers; every kernel and all compute on the card), legs 1-7 of
+    the dry run (leg 4 at 152 x 100, leg 6 on its 2 x 1 time x space
+    mesh) and the sharded DIA SpMV; then a second spawn of 4 ranks runs
+    leg 6 on a 2 x 2 mesh; then the same legs single-device on the card.
+    Checks: every rank converged; leg 4's halo'd J.v within 1e-10 of the
+    single-device one; each of legs 1, 2 and 4's p within 1e-8 of the
+    single device's, the same detection counts, leg 1's states, its
+    secant tangent and the secant corrector's p within 1e-8; legs 3 and
+    5-7 (and leg 6 at 2 x 2) within 1e-8 relative of one device's, with
+    the same GMRES iterations and no kernel launched; the DIA product
+    within 1e-12 of the single-device kernel's and of the plain version
+    (relative to its max); the halo closure and dia_spmv launched on
+    every rank.  Returns (halo launches by (dtype, K) over the ranks,
+    dia_spmv launches over the ranks)."""
     from bifurcationkit.jl_tpu_torch.parallel import dryrun, launch
 
+    here = os.path.join(ROOT, "chip_smoke.py")
     t0 = time.perf_counter()
     ranks = launch.start_ranks(
-        f"{os.path.join(ROOT, 'chip_smoke.py')}:parallel_rank",
-        PARALLEL_RANKS, dict(n_ranks=PARALLEL_RANKS), timeout=240)
+        f"{here}:parallel_rank", PARALLEL_RANKS,
+        dict(n_ranks=PARALLEL_RANKS, t_spawn=time.time()), timeout=240)
     res = ranks.join()
     t_ranks = time.perf_counter() - t0
+    nt, ns = MESH_2D
+    t0 = time.perf_counter()
+    ranks = launch.start_ranks(
+        f"{here}:parallel_rank_2d", nt * ns,
+        dict(nt=nt, ns=ns, t_spawn=time.time()), timeout=240)
+    res_2d = ranks.join()
+    t_ranks_2d = time.perf_counter() - t0
     reset_launches()
     single = dryrun.single_device(PARALLEL_RANKS, "cuda")
     single_launches = sh_jv_mod.launch_count()
+    single_2d = dryrun.leg6_mesh2d(None, torch.device("cuda"), nt, ns)
     halo, dia_launches = {}, 0
     for r, out in enumerate(res):
         for key, n in out["halo_launches"].items():
@@ -4437,7 +4508,8 @@ def parallel():
             p_got = got["palc_p"] if leg == "leg1" else got["p"]
             p_ref = ref["palc_p"] if leg == "leg1" else ref["p"]
             legs[leg] = dict(seconds=out["seconds"][leg], p=p_got,
-                             p_single=p_ref, p_gap=abs(p_got - p_ref))
+                             p_single=p_ref, p_gap=abs(p_got - p_ref),
+                             launches=out["launches"][leg])
             if leg == "leg1":
                 # the Newton state, the dry run's corrector (its tangent's
                 # u-part zero) and the corrector on the secant tangent
@@ -4475,17 +4547,29 @@ def parallel():
             if not abs(p_got - p_ref) <= 1e-8:
                 raise AssertionError(f"rank {r}: {leg}'s p {p_got} is not "
                                      f"within 1e-8 of one device's {p_ref}")
+        for leg in NEW_LEG_CHECKS:
+            legs[leg] = dict(seconds=out["seconds"][leg], **_check_new_leg(
+                r, leg, out[leg], single[leg], out["launches"][leg]))
         dia = out["dia"]
         if not (max(dia["max_abs_err"], dia["max_abs_err_plain"])
                 <= 1e-12 * max(dia["scale"], 1.0)) or dia["launches"] < 1:
             raise AssertionError(f"rank {r}: sharded dia_spmv {dia}")
         if not out["halo_launches"]:
             raise AssertionError(f"rank {r} launched no halo closure")
-        phase("parallel_rank", rank=r, device=out["device"],
-              transport=out["transport"],
+        phase("parallel_rank", spawn=1, rank=r, device=out["device"],
+              transport=out["transport"], start_s=out["start_s"],
               jv_rel_err=out["leg4"]["jv_rel_err"], legs=legs,
               halo_launches=out["halo_launches"], dia=dia)
+    for r, out in enumerate(res_2d):
+        row = _check_new_leg(r, "leg6", out["leg6"], single_2d,
+                             out["launches"]["leg6"])
+        phase("parallel_rank", spawn=2, rank=r, device=out["device"],
+              transport=out["transport"], start_s=out["start_s"],
+              mesh=f"{nt}x{ns} (time x space)",
+              legs={"leg6": dict(seconds=out["seconds"]["leg6"], **row)})
     phase("parallel", ranks=PARALLEL_RANKS, seconds_ranks=t_ranks,
+          ranks_2d=nt * ns, mesh_2d=f"{nt}x{ns}",
+          seconds_ranks_2d=t_ranks_2d,
           halo_launches=halo, dia_launches=dia_launches,
           single_device_sh_jv_launches=single_launches,
           gpu_to_gpu_collective="none: one card; gloo moves host copies")

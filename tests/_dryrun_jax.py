@@ -117,3 +117,205 @@ def jax_leg4(mesh):
     """Leg 4 with its 152 rows cut to ROWS, 1 step."""
     return _sh_leg(mesh, ROWS, dryrun.FLAGSHIP_COLS,
                    _sh_contpar(1, 12, 1, 1e-2, 40, 80, 8), 1)
+
+
+def _tshard(n):
+    from bifurcationkit.jl_tpu.parallel import make_mesh
+
+    tmesh = make_mesh((n,), ("time",), devices=jax.devices()[:n])
+    return tmesh, NamedSharding(tmesh, P("time"))
+
+
+def _shard_blocks(blocks, shardings):
+    import dataclasses
+
+    return dataclasses.replace(blocks, **{
+        f: jax.device_put(getattr(blocks, f), s)
+        for f, s in shardings.items()})
+
+
+def jax_leg3(n=N_RANKS):
+    """The JAX dry run's leg 3: the Stuart-Landau COP solve with the
+    blocks on a ("time",) mesh of n devices, the unsharded `cop_solve`,
+    and the monodromy tree product of the time-sharded interval maps.
+    Here and in legs 5 and 6 the work the dry run runs eagerly is jitted
+    (the same functions; eager JAX compiles every primitive)."""
+    from bifurcationkit.jl_tpu import models
+    from bifurcationkit.jl_tpu.periodic.cop import (
+        collocation_block_jacobian, cop_solve)
+    from bifurcationkit.jl_tpu.periodic.floquet import monodromy_from_maps
+    from bifurcationkit.jl_tpu.periodic.orbits import periodic_orbit_problem
+
+    tmesh, tshard = _tshard(n)
+    prob = models.stuart_landau(r=0.5, mu=0.2, nu=0.5, c3=1.0, c5=0.0)
+    disc = bk.Collocation(Ntst=2 * n, m=3)
+    period = 2 * np.pi / abs(0.2 - 0.5 * 0.5)
+
+    def orbit(t):
+        return np.array([np.sqrt(0.5) * np.cos(-t),
+                         np.sqrt(0.5) * np.sin(-t)])
+
+    X0 = disc.generate_solution(orbit, period, 2)
+    po = periodic_orbit_problem(prob, disc, X0)
+    blocks = jax.jit(lambda X, par: collocation_block_jacobian(
+        disc, prob, X, par))(X0, po.params)
+    rhs = jnp.asarray(np.random.default_rng(0).standard_normal(X0.shape[0]))
+    x_ref = jax.jit(cop_solve)(blocks, rhs)
+    blocks_sh = _shard_blocks(blocks, {f: tshard for f in (
+        "Aint", "B0", "cT", "phi0", "phiI")})
+    with tmesh:
+        x_sh = jax.jit(cop_solve)(blocks_sh, rhs)
+        maps = disc.interval_maps(prob, X0, po.params)
+        maps_sh = jax.device_put(maps, NamedSharding(tmesh,
+                                                     P("time", None, None)))
+        M = jax.jit(lambda m: monodromy_from_maps(m, method="assoc"))(
+            maps_sh)
+    return {"x": np.asarray(x_sh), "x_single": np.asarray(x_ref),
+            "M": np.asarray(M)}
+
+
+def jax_leg5(borders, n=N_RANKS):
+    """The JAX dry run's leg 5 with the complex borders `borders` (the
+    port's numpy draws, for both packages): the zero-Hopf PO by
+    `newton_po`, the NS functional PO-MA jacobian, and `POMinAugLS` on
+    its time-sharded blocks and on one device."""
+    from bifurcationkit.jl_tpu.periodic.codim2 import (
+        POMinAugLS, _po_ma_problem_functional)
+    from bifurcationkit.jl_tpu.periodic.orbits import newton_po
+
+    tmesh, tshard = _tshard(n)
+    om = 1.5
+
+    def F_zh(u, par):
+        x, z = u[0], u[1] + 1j * u[2]
+        zz = u[1] ** 2 + u[2] ** 2
+        dx = par["p1"] + x * x - zz
+        dz = ((par["p2"] + 1j * om) * z + (0.5 + 0.3j) * x * z
+              + (-1.0 + 0.2j) * z * zz)
+        return jnp.array([dx, jnp.real(dz), jnp.imag(dz)])
+
+    prob = bk.BifurcationProblem(F_zh, u0=jnp.zeros(3),
+                                 params={"p1": 0.02488, "p2": 0.012766},
+                                 lens="p1")
+    disc = bk.Collocation(Ntst=2 * n, m=4)
+    r5 = np.sqrt(2.0) * 0.08
+
+    def orbit(t):
+        return np.array([r5 * r5, r5 * np.cos(t), r5 * np.sin(t)])
+
+    X0 = disc.generate_solution(orbit, 2 * np.pi / om, 3)
+    sol, po = newton_po(prob, disc, X0,
+                        options=bk.NewtonPar(tol=1e-9, max_iterations=30))
+    maprob, _ = _po_ma_problem_functional(po, "p2", "ns")
+    params = dict(po.params)
+    params["_a"], params["_b"] = (jnp.asarray(b) for b in borders)
+    Y = jnp.concatenate([sol.u, jnp.asarray([0.02488, 0.48])])
+    jac = jax.jit(maprob.jac)(Y, params)
+    rhs = jnp.asarray(np.random.default_rng(9).standard_normal(Y.shape[0]))
+    ls = POMinAugLS()
+    x_ref, _, _ = jax.jit(lambda j, r: ls(j, r))(jac, rhs)
+    import dataclasses
+
+    jac_sh = dataclasses.replace(jac, blocks=_shard_blocks(
+        jac.blocks, {f: tshard for f in ("Aint", "B0", "cT", "phi0",
+                                         "phiI")}))
+    with tmesh:
+        x_sh, _, _ = jax.jit(lambda j, r: ls(j, r))(jac_sh, rhs)
+    return {"x": np.asarray(x_sh), "x_single": np.asarray(x_ref),
+            "u_po": np.asarray(sol.u), "converged": bool(sol.converged)}
+
+
+def jax_leg6(nt, ns):
+    """The JAX dry run's leg 6 on an (nt, ns) ("time", "space") mesh of
+    nt ns devices: the Brusselator PO's COP solve with the blocks placed
+    over both axes, and the trapezoid monodromy apply on v sharded over
+    `space`; with the unsharded solve and apply."""
+    from bifurcationkit.jl_tpu import models
+    from bifurcationkit.jl_tpu.parallel import make_mesh
+    from bifurcationkit.jl_tpu.periodic.cop import (
+        collocation_block_jacobian, cop_solve)
+    from bifurcationkit.jl_tpu.periodic.orbits import periodic_orbit_problem
+
+    mesh2 = make_mesh((nt, ns), ("time", "space"),
+                      devices=jax.devices()[:nt * ns])
+    n_sites = 4 * ns
+    vf = models.brusselator_1d(n=n_sites)
+    n6 = 2 * n_sites
+    disc = bk.Collocation(Ntst=2 * nt, m=3)
+    base = np.asarray(vf.u0)
+
+    def orbit(t):
+        return base + 0.05 * np.cos(t) * np.sin(
+            np.pi * (np.arange(n6) + 1) / (n6 + 1))
+
+    X0 = disc.generate_solution(orbit, 5.0, n6)
+    po = periodic_orbit_problem(vf, disc, X0)
+    blocks = jax.jit(lambda X, par: collocation_block_jacobian(
+        disc, vf, X, par))(X0, po.params)
+    rhs = jnp.asarray(np.random.default_rng(6).standard_normal(X0.shape[0]))
+    x_ref = jax.jit(cop_solve)(blocks, rhs)
+    ts2 = NamedSharding(mesh2, P("time", "space", None))
+    blocks_sh = _shard_blocks(blocks, {
+        "Aint": ts2, "B0": ts2,
+        "cT": NamedSharding(mesh2, P("time", "space")),
+        "phi0": NamedSharding(mesh2, P("time", None)),
+        "phiI": NamedSharding(mesh2, P("time", "space"))})
+    with mesh2:
+        x_sh = jax.jit(cop_solve)(blocks_sh, rhs)
+    trap = bk.Trapeze(M=4 * nt)
+    Xt = trap.generate_solution(orbit, 5.0, n6)
+    pot = periodic_orbit_problem(vf, trap, Xt)
+    op = trap.monodromy_operator(vf, Xt, pot.params)
+    v = jnp.asarray(np.random.default_rng(7).standard_normal(n6))
+    ref_apply = jax.jit(op)(v)
+    with mesh2:
+        out = jax.jit(op)(jax.device_put(v, NamedSharding(mesh2,
+                                                          P("space"))))
+    return {"x": np.asarray(x_sh), "x_single": np.asarray(x_ref),
+            "monodromy_apply": np.asarray(out),
+            "monodromy_apply_single": np.asarray(ref_apply)}
+
+
+def jax_leg7(n=N_RANKS):
+    """The JAX dry run's leg 7 on a 1 x n ("branch", "space") mesh: the
+    fold MA sigma system's anchors and one Govaerts apply, the flat
+    vectors sharded over `space`; with the unsharded ones."""
+    from bifurcationkit.jl_tpu import models
+    from bifurcationkit.jl_tpu.codim2.minaug_mf import fold_ma_problem_mf
+    from bifurcationkit.jl_tpu.parallel import make_mesh
+
+    mesh = make_mesh((1, n), ("branch", "space"), devices=jax.devices()[:n])
+    vf = models.brusselator_1d(n=8 * n)
+    n7 = 2 * 8 * n
+    ma = fold_ma_problem_mf(vf, vf.lens, "beta")
+    rng = np.random.default_rng(11)
+    x = jnp.asarray(np.asarray(vf.u0).ravel()
+                    + 0.05 * rng.standard_normal(n7))
+    p1 = jnp.asarray(0.31)
+    a = jnp.asarray(rng.standard_normal(n7))
+    a = a / jnp.linalg.norm(a)
+    dx = jnp.asarray(rng.standard_normal(n7))
+    dp = jnp.asarray(0.7)
+
+    @jax.jit
+    def sigma_leg(x, p1s, a, b):
+        X = jnp.concatenate([x, p1s[None]])
+        return ma.anchors_kernel(X, {**ma.params, "_a": a, "_b": b})
+
+    @jax.jit
+    def gov_apply_leg(x, p1s, a, b, dx, dp):
+        X = jnp.concatenate([x, p1s[None]])
+        d = jnp.concatenate([dx, dp[None]])
+        return ma.jac_op(X, {**ma.params, "_a": a, "_b": b})(d)
+
+    v_ref, w_ref, sig_ref = sigma_leg(x, p1, a, a)
+    ap_ref = gov_apply_leg(x, p1, a, a, dx, dp)
+    with mesh:
+        sh = NamedSharding(mesh, P("space"))
+        xs, as_, dxs = (jax.device_put(t, sh) for t in (x, a, dx))
+        v, w, sig = sigma_leg(xs, p1, as_, as_)
+        ap = gov_apply_leg(xs, p1, as_, as_, dxs, dp)
+    return {"v": np.asarray(v), "w": np.asarray(w), "sigma": float(sig),
+            "apply": np.asarray(ap), "v_single": np.asarray(v_ref),
+            "w_single": np.asarray(w_ref), "sigma_single": float(sig_ref),
+            "apply_single": np.asarray(ap_ref)}

@@ -133,3 +133,170 @@ def cases(sh_u, sh_v, sh_scal, maps):
     out["sh_residual"] = res.full_tensor().numpy()
     out["sh_residual_placements"] = str(res.placements)
     return out
+
+
+# ---------------------------------------------------------------------------
+# dry-run legs 3 and 5-7, the time-sharded COP solves, block GMRES, the
+# replicated tail and the sharded Brusselator's hooks
+# (test_torch_parallel_cop.py, _leg5.py, _leg6.py, _leg7.py, _gmres.py)
+# ---------------------------------------------------------------------------
+
+CPU = torch.device("cpu")
+
+
+def cop_borders(size: int):
+    """Seeded borders of the bordered and k-border COP solves: dR, dzu,
+    the k = 2 columns C (size, 2), rows D (2, size), E (2, 2) and s (2,)."""
+    rng = np.random.default_rng(21)
+    return {"dR": rng.standard_normal(size), "dzu": rng.standard_normal(size),
+            "C": rng.standard_normal((size, 2)),
+            "D": rng.standard_normal((2, size)),
+            "E": rng.standard_normal((2, 2)), "s": rng.standard_normal(2)}
+
+
+def cop_legs(n_ranks: int):
+    """Leg 3, and the bordered and k-border time-sharded COP solves of
+    leg 3's block jacobian, on a ("time",) mesh of the ranks."""
+    from bifurcationkit.jl_tpu_torch.parallel import cop as pcop
+    from bifurcationkit.jl_tpu_torch.parallel import dryrun
+
+    tmesh = make_mesh((n_ranks,), ("time",), device="cpu")
+    out = {"leg3": dryrun.leg3_cop(tmesh, CPU, n_ranks)}
+    blocks, rhs = dryrun._stuart_landau_cop(CPU, n_ranks)
+    sh = pcop.shard_blocks(blocks, tmesh)
+    b = {k: torch.tensor(v) for k, v in cop_borders(rhs.shape[0]).items()}
+    x, dp = pcop.cop_solve_bordered_sharded(sh, rhs, 0.3, b["dR"], b["dzu"],
+                                            0.7, 0.5, 0.6, 0.9)
+    out["bordered"] = (x.numpy(), float(dp))
+    x, y = pcop.cop_solve_block_sharded(sh, rhs, b["C"], b["D"], b["E"],
+                                        b["s"])
+    out["block"] = (x.numpy(), y.numpy())
+    return out
+
+
+def leg5(n_ranks: int):
+    from bifurcationkit.jl_tpu_torch.parallel import dryrun
+
+    tmesh = make_mesh((n_ranks,), ("time",), device="cpu")
+    return dryrun.leg5_po_ma(tmesh, CPU, n_ranks)
+
+
+def leg6(nt: int, ns: int):
+    from bifurcationkit.jl_tpu_torch.parallel import dryrun
+
+    return dryrun.dryrun_mesh2d(nt, ns, "cpu")["leg6"]
+
+
+def leg7(n_ranks: int):
+    from bifurcationkit.jl_tpu_torch.parallel import dryrun
+
+    mesh = make_mesh((1, n_ranks), ("branch", "space"), device="cpu")
+    return dryrun.leg7_fold_mf(mesh, CPU, n_ranks)
+
+
+GMRES_SITES = 16
+
+
+def block_gmres_case():
+    """The columns, the operator and the solver of the block-GMRES case:
+    the Brusselator's implicit trapezoid step W - c J(x) W at a seeded
+    state, on 5 columns: three seeded, one zero (frozen from the start)
+    and one 1e3 times larger; restart 6 so that the columns restart and
+    freeze at different iterations."""
+    rng = np.random.default_rng(31)
+    x = brusselator_guess(GMRES_SITES) + 0.1 * rng.standard_normal(
+        2 * GMRES_SITES)
+    B = rng.standard_normal((5, 2 * GMRES_SITES))
+    B[3] = 0.0
+    B[4] *= 1e3
+    return x, B, 0.02, bt.GMRES(restart=6, maxiter=60, rtol=1e-9)
+
+
+def tail_case():
+    """The extended system [J - 200 I, a; a^T 0][v; s] = [0; 1] at a
+    seeded state, whose scalar s is the replicated tail: the shift makes
+    GMRES stop early at rtol 1e-3 (8 iterations of 33), where a tail
+    counted once per rank would change the iterate."""
+    rng = np.random.default_rng(41)
+    x = brusselator_guess(GMRES_SITES) + 0.1 * rng.standard_normal(
+        2 * GMRES_SITES)
+    a = rng.standard_normal(2 * GMRES_SITES)
+    return x, a / np.linalg.norm(a), 200.0, dict(restart=40, maxiter=240,
+                                                 rtol=1e-3, atol=0.0)
+
+
+def hook_inputs():
+    """A state, a batch of 3 rows, directions v, w and the parameters at
+    which the sharded Brusselator's hooks are held to torch.func."""
+    rng = np.random.default_rng(51)
+    n = 2 * GMRES_SITES
+    return (brusselator_guess(GMRES_SITES) + 0.1 * rng.standard_normal(n),
+            rng.standard_normal((3, n)), rng.standard_normal((2, n)))
+
+
+def gmres_and_hooks(n_ranks: int):
+    """Block GMRES and the replicated tail under `use_mesh`, and the
+    sharded Brusselator's hooks, on a 1 x n_ranks mesh: results in the
+    global layout."""
+    mesh = make_mesh((1, n_ranks), ("branch", "space"), device="cpu")
+    prob = brusselator_1d_sharded(mesh, n=GMRES_SITES, device="cpu",
+                                  batched=True)
+    par = prob.params
+
+    def put(y):
+        y = np.asarray(y)
+        return interop.state_to_mesh(
+            y.reshape(y.shape[:-1] + (2, GMRES_SITES)), mesh,
+            dim=y.ndim).reshape(y.shape[:-1] + (-1,))
+
+    def glob(y):
+        return full_state(y.reshape(y.shape[:-1] + (2, -1)), mesh,
+                          dim=y.dim()).reshape(y.shape[:-1] + (-1,)).numpy()
+
+    out = {}
+    x, B, c, gm = block_gmres_case()
+    J = prob.jac_op(put(x), par)
+    with use_mesh(mesh):
+        X, cv, it = gm.solve_block(lambda W: W - c * J(W), put(B))
+    out["block"] = (glob(X), np.asarray(cv), np.asarray(it))
+    x, a, shift, opts = tail_case()
+    gm = bt.GMRES(n_rep=1, **opts)
+    J = prob.jac_op(put(x), par)
+    with use_mesh(mesh):
+        z, cv, it = gm(bordered_operator(lambda v: J(v) - shift * v,
+                                         put(a)), bordered_rhs(put(a)))
+    out["tail"] = (glob(z[:-1]), float(z[-1]), bool(cv), int(it))
+    x, rows, vw = hook_inputs()
+    xs, r = put(x), put(rows)
+    v, w = put(vw[0]), put(vw[1])
+    out["F_batch"] = glob(prob.F(r, par))
+    out["jv_batch"] = glob(prob.jac_op(xs, par)(r))
+    out["jac_adjoint"] = glob(prob.jac_adjoint(xs, par)(w))
+    out["grad_pairing"] = glob(prob.grad_pairing(xs, par, [v, w], [w, v]))
+    out["d2F"] = glob(prob.d2F_user(xs, par, v, w))
+    for name, (dF, dJv) in prob.param_derivs.items():
+        out[f"dF_d{name}"] = glob(dF(xs, par))
+        out[f"dJv_d{name}"] = glob(dJv(xs, par, v))
+    return out
+
+
+def bordered_operator(Jd, a):
+    """z = [v; s] -> [J v + s a; <a, v>]: the extended fold system, its
+    border dot completed over the ranks inside `use_mesh`."""
+    from bifurcationkit.jl_tpu_torch.core.state import global_dot
+
+    def op(z):
+        return torch.cat([Jd(z[:-1]) + z[-1] * a,
+                          global_dot(a, z[:-1]).reshape(1)])
+
+    return op
+
+
+def bordered_rhs(a):
+    return torch.cat([torch.zeros_like(a), torch.ones(1, dtype=a.dtype)])
+
+
+def rel(a, b) -> float:
+    """||a - b|| / ||b|| (the dry run's relative error)."""
+    a, b = np.asarray(a), np.asarray(b)
+    return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-300))

@@ -169,8 +169,6 @@ def _solver_calls():
                          torch.device("cpu"))
     return {
         "DenseLS": lambda: bt.DenseLS()(A, b),
-        "block GMRES": lambda: bt.GMRES().solve_block(
-            lambda X: X @ A.T, b[None, :]),
         "BiCGStab": lambda: bt.BiCGStab()(A, b),
         "IterativeRefinement": lambda: bt.IterativeRefinement()(A, b),
         "DenseEig": lambda: bt.DenseEig()(A, 2),
